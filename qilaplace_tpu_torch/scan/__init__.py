@@ -1,0 +1,1 @@
+"""scan of the PyTorch port (counterpart of qilaplace_tpu/scan)."""

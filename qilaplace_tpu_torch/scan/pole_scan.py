@@ -1,0 +1,211 @@
+"""Pole-scan API: direct readout grids and the coarse-to-fine pole search.
+
+Counterpart of ``qilaplace_tpu/scan/pole_scan.py`` for the direct route
+(``chi_grid_direct``, ``coarse_to_fine_pole_search(readout="direct")``);
+the apply-then-read route waits for the port of ``ops/apply.apply``.
+
+Coordinate conventions: s(k, l) = (wr k + i wi l) / N, z(k, l) = e^{-s(k, l)},
+chi(k, l) read out at interleaved LSB-first (k, l) bits. ``z_from_kl`` and
+``kl_from_z`` always compute in float64 (N = 2^n reaches 2^30).
+
+The direct readout routes by width alone, on every device: an effective
+chain chi_eff = chi_W * chi_psi <= 256 is folded by ``zipper_chain`` and
+read by kernel K1 (its plain torch version for CPU tensors), wider pairs
+take the factored ``apply_coefficient_batch``. Both compute the same
+numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from qilaplace_tpu_torch.core.mps import ZTMPS
+from qilaplace_tpu_torch.ops.apply import apply_coefficient_batch, zipper_chain
+from qilaplace_tpu_torch.ops.readout_kernels import MAX_CHI, coefficient_batch_k1
+from qilaplace_tpu_torch.transforms.zt import zt_mpo
+from qilaplace_tpu_torch.utils.bits import paired_config_from_kl
+
+TWO_PI = 2.0 * math.pi
+
+
+def direct_vals(W, psi, configs) -> torch.Tensor:
+    """Direct <config|W|psi> values at int32 ``configs`` [B, 2n] on psi's
+    device, routed by chi_eff = chi_W * chi_psi (the JAX package's
+    ``_direct_vals``, which routes by backend instead)."""
+    chi_eff = W.chain.chi * psi.chain.chi
+    if chi_eff <= MAX_CHI:
+        return coefficient_batch_k1(zipper_chain(W, psi), configs)
+    return apply_coefficient_batch(W, psi, configs)
+
+
+def chi_grid_direct(W, psi_z: ZTMPS, ks, ls) -> torch.Tensor:
+    """Sample chi on ``ks`` x ``ls`` by direct ``<config| W |psi>``
+    contraction (no intermediate truncated product state); returns a
+    [len(ks), len(ls)] complex grid on psi's device."""
+    n = psi_z.n
+    device = psi_z.chain.device
+    ks = torch.as_tensor(ks, dtype=torch.int64, device=device)
+    ls = torch.as_tensor(ls, dtype=torch.int64, device=device)
+    K, L = torch.meshgrid(ks, ls, indexing="ij")
+    configs = paired_config_from_kl(K.reshape(-1), L.reshape(-1), n)
+    vals = direct_vals(W, psi_z, configs)
+    return vals.reshape(ks.shape[0], ls.shape[0])
+
+
+def z_from_kl(k, l, n: int, wr, wi=TWO_PI) -> torch.Tensor:
+    """Grid indices -> z-plane point z = r e^{-i theta} (complex128)."""
+    N = 2**n
+    k = torch.as_tensor(k, dtype=torch.float64)
+    l = torch.as_tensor(l, dtype=torch.float64, device=k.device)
+    r = torch.exp(-wr * k / N)
+    theta = wi * l / N
+    return torch.complex(r * torch.cos(theta), -r * torch.sin(theta))
+
+
+def kl_from_z(z, n: int, wr, wi=TWO_PI):
+    """Nearest grid indices (int64) for a z-plane target."""
+    N = 2**n
+    z = torch.as_tensor(z, dtype=torch.complex128)
+    r = z.abs()
+    theta = torch.remainder(-torch.angle(z), TWO_PI)
+    k = torch.clamp(torch.round(-N * torch.log(r) / wr).long(), 0, N - 1)
+    l = torch.remainder(torch.round(N * theta / wi).long(), N)
+    return k, l
+
+
+@dataclasses.dataclass
+class ScanResult:
+    ks: torch.Tensor       # [K] row indices
+    ls: torch.Tensor       # [L] column indices
+    chi: torch.Tensor      # [K, L] sampled coefficients
+    k_peak: torch.Tensor   # argmax |chi| row index
+    l_peak: torch.Tensor   # argmax |chi| col index
+    z_peak: torch.Tensor   # z at the peak
+    wr: float
+    wi: float
+
+
+@dataclasses.dataclass
+class PoleSearchResult:
+    coarse: ScanResult
+    fine: ScanResult
+    superfine: ScanResult
+
+    @property
+    def z_pole(self) -> torch.Tensor:
+        return self.superfine.z_peak
+
+
+def _tight_bucket(ranks, chi: int) -> int:
+    """Smallest bucket holding the realized ranks: multiples of 8, plus a
+    4-bucket for the very-low-rank states the cross encoder produces on
+    closed-form signals."""
+    r = int(ranks.max())
+    if r <= 4:
+        return min(chi, 4)
+    return min(chi, max(8, ((r + 7) // 8) * 8))
+
+
+def tighten(state):
+    """Repad a container to the tight chi bucket for its realized ranks."""
+    from qilaplace_tpu_torch.core.mpo import MPO, PairedSiteMPO, mpo_repad
+    from qilaplace_tpu_torch.core.mps import repad
+
+    chain = getattr(state, "chain", state)
+    chi = _tight_bucket(chain.ranks, chain.chi)
+    if chi == chain.chi:
+        return state
+    if isinstance(state, (MPO, PairedSiteMPO)):
+        return mpo_repad(state, chi)
+    return repad(state, chi)
+
+
+def coarse_to_fine_pole_search(
+    psi_z: ZTMPS,
+    *,
+    wr_coarse: float = TWO_PI,
+    wr_fine: float = 0.5,
+    wi: float = TWO_PI,
+    coarse_points: int = 256,
+    fine_points: int = 128,
+    superfine_half: int = 24,
+    cutoff: float = 1e-12,
+    maxdim: int = 128,
+    readout: str = "auto",
+    engine: str = "analytic",
+    cache: bool = True,
+    cache_dir: str | None = None,
+) -> PoleSearchResult:
+    """Coarse -> fine -> superfine pole identification on psi's device.
+
+    coarse:    stride N/coarse_points over the full (k, l) grid at wr_coarse;
+    fine:      rebuild the zT MPO at wr_fine, scan a window around the
+               coarse peak;
+    superfine: stride-1 window of half-width ``superfine_half`` around the
+               fine peak, reusing the fine transform.
+
+    ``readout="direct"`` contracts <config| W |psi> per grid point;
+    ``"auto"`` resolves to "direct" for 32-bit states and to "apply" for
+    64-bit ones, as in the JAX package. The "apply" route raises
+    NotImplementedError until ``ops/apply.apply`` is ported.
+    """
+    n = psi_z.n
+    N = 2**n
+    device = psi_z.chain.device
+    wide = psi_z.chain.cores.element_size() >= 8
+    dtype = torch.complex128 if wide else torch.complex64
+    if readout == "auto":
+        readout = "apply" if wide else "direct"
+    if readout != "direct":
+        raise NotImplementedError(
+            f"coarse_to_fine_pole_search: readout {readout!r} needs "
+            "ops/apply.apply, which is not ported yet (ROADMAP queue 1, "
+            "item 11: apply + compose)"
+        )
+    psi_tight = tighten(psi_z)
+
+    def transform(wr):
+        return tighten(zt_mpo(n, wr, engine=engine, cutoff=cutoff,
+                              maxdim=maxdim, dtype=dtype, cache=cache,
+                              cache_dir=cache_dir, device=device))
+
+    def scan_one(W, ks, ls, wr):
+        chi = chi_grid_direct(W, psi_tight, ks, ls)
+        flat = torch.argmax(chi.abs())
+        i, j = flat // chi.shape[1], flat % chi.shape[1]
+        return ScanResult(
+            ks=ks, ls=ls, chi=chi, k_peak=ks[i], l_peak=ls[j],
+            z_peak=z_from_kl(ks[i].cpu(), ls[j].cpu(), n, wr, wi),
+            wr=float(wr), wi=float(wi),
+        )
+
+    def arange(lo, hi, step=1):
+        return torch.arange(lo, hi, step, dtype=torch.int64, device=device)
+
+    # --- coarse ---
+    stride_c = max(1, N // coarse_points)
+    ks_c = arange(0, N, stride_c)
+    coarse = scan_one(transform(wr_coarse), ks_c, ks_c, wr_coarse)
+
+    # --- fine: re-center the coarse peak in the wr_fine coordinates ---
+    W_f = transform(wr_fine)
+    k_c, l_c = kl_from_z(coarse.z_peak, n, wr_fine, wi)
+    k_c, l_c = k_c.to(device), l_c.to(device)
+    half_k = max(1, int(round(stride_c * wr_coarse / wr_fine)))
+    half_l = max(1, stride_c)
+    stride_fk = max(1, (2 * half_k) // fine_points)
+    stride_fl = max(1, (2 * half_l) // fine_points)
+    ks_f = torch.clamp(k_c + arange(-half_k, half_k + 1, stride_fk), 0, N - 1)
+    ls_f = torch.remainder(l_c + arange(-half_l, half_l + 1, stride_fl), N)
+    fine = scan_one(W_f, ks_f, ls_f, wr_fine)
+
+    # --- superfine: stride-1 zoom around the fine peak ---
+    h = superfine_half
+    ks_s = torch.clamp(fine.k_peak + arange(-h, h + 1), 0, N - 1)
+    ls_s = torch.remainder(fine.l_peak + arange(-h, h + 1), N)
+    superfine = scan_one(W_f, ks_s, ls_s, wr_fine)
+
+    return PoleSearchResult(coarse=coarse, fine=fine, superfine=superfine)

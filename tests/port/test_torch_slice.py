@@ -1,0 +1,132 @@
+"""The ported slice end to end at n=8 against the JAX package.
+
+Cross encode -> analytic build -> direct readout on the 64 (k, l) points of
+tests/fixtures/parity_n8.npz. Port and JAX agree to 1e-10 of the peak
+(same f64 inputs, same contractions up to summation order). Both sit
+within the cutoff's budget of the fixture's closed form: the relative
+squared cutoff rule allows ~sqrt(c) * O(0.1..1) per truncation stage,
+relative to the unit-norm signal, so at cutoff 1e-12 max |delta| <= 1e-6."""
+
+import functools
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import qilaplace_tpu as qj
+from qilaplace_tpu.scan import pole_scan as jps
+from qilaplace_tpu.utils.bits import paired_config_from_kl as j_cfg
+
+import qilaplace_tpu_torch as qt
+from qilaplace_tpu_torch.scan.pole_scan import direct_vals
+from qilaplace_tpu_torch.utils.bits import paired_config_from_kl
+from qilaplace_tpu_torch.utils.interop import mps_from_numpy
+
+from port_helpers import sin_decay
+
+FIXTURE = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                       "fixtures", "parity_n8.npz")
+N_BITS, WR = 8, 2 * np.pi
+
+
+@functools.lru_cache(maxsize=1)
+def slice_states():
+    """(psi, W) of both packages at n=8, cutoff 1e-12, tight buckets."""
+    kw = dict(cutoff=1e-12, maxdim=128)
+    psi_j = jps.tighten(qj.signal_ztmps(sin_decay(N_BITS), method="cross",
+                                        **kw))
+    W_j = jps.tighten(qj.analytic_zt_mpo(N_BITS, WR, dtype=np.complex128,
+                                         **kw))
+    psi_t = qt.tighten(qt.signal_ztmps_cross(sin_decay(N_BITS), **kw))
+    pack = qt.zt_product_pack(N_BITS, WR, **kw)
+    W_t = qt.tighten(qt.mpo_from_pack(pack, device="cpu",
+                                      dtype=torch.complex128))
+    return psi_j, W_j, psi_t, W_t
+
+
+def test_slice_n8_against_jax_and_fixture():
+    fx = np.load(FIXTURE)
+    ks, ls = fx["ks"], fx["ls"]
+    want = fx["chi_re"] + 1j * fx["chi_im"]
+    psi_j, W_j, psi_t, W_t = slice_states()
+    assert psi_t.chain.chi == 4 and W_t.chain.chi * psi_t.chain.chi <= 256
+    got_j = np.asarray(jps._direct_vals(W_j, psi_j, j_cfg(ks, ls, N_BITS)))
+    got_j = got_j / float(psi_j.amplitude)
+    got_t = direct_vals(W_t, psi_t, paired_config_from_kl(ks, ls, N_BITS))
+    got_t = got_t.numpy() / float(psi_t.amplitude)
+    peak = np.abs(want).max()
+    assert np.abs(got_t - got_j).max() <= 1e-10 * peak
+    assert np.abs(got_t - want).max() <= 1e-6
+    assert np.abs(got_j - want).max() <= 1e-6
+
+
+def test_direct_routes_agree():
+    # chi_eff <= 256 goes through zipper_chain + K1, wider pairs through the
+    # factored zipper; the two routes compute the same numbers
+    _, _, psi_t, W_t = slice_states()
+    wide = qt.repad(psi_t, 8)
+    assert W_t.chain.chi * wide.chain.chi > 256
+    rng = np.random.default_rng(0)
+    cfg = paired_config_from_kl(rng.integers(0, 2**N_BITS, 50),
+                                rng.integers(0, 2**N_BITS, 50), N_BITS)
+    a = direct_vals(W_t, psi_t, cfg)
+    b = direct_vals(W_t, wide, cfg)
+    assert (a - b).abs().max() <= 1e-12 * a.abs().max()
+
+
+def test_chi_grid_direct_matches_jax():
+    psi_j, W_j, psi_t, W_t = slice_states()
+    ks = np.array([0, 1, 3, 17, 200])
+    ls = np.array([0, 5, 64, 255])
+    want = np.asarray(jps.chi_grid_direct(W_j, psi_j, ks, ls))
+    got = qt.chi_grid_direct(W_t, psi_t, ks, ls).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
+def test_z_kl_maps_match_jax():
+    for n, wr in ((8, 0.5), (30, 2 * np.pi)):
+        for k, l in ((3, 7), (100, 200), (0, 0), (2**n - 1, 2**n - 5)):
+            z = qt.z_from_kl(k, l, n, wr)
+            assert abs(complex(z) - complex(jps.z_from_kl(k, l, n, wr))) \
+                <= 1e-15
+            k2, l2 = qt.kl_from_z(z, n, wr)
+            assert (int(k2), int(l2)) == (k, l)
+
+
+def test_pole_search_direct_matches_jax(tmp_path):
+    # tests/test_scan.py's direct-readout search (cross encode here, which
+    # needs no compile); the state comes from the JAX encoder and is
+    # carried over, so both searches read the same state.
+    # The port reads the operator artifacts the JAX search wrote (one cache
+    # directory), which also checks that the two packages share them.
+    n = 8
+    j = np.arange(2**n)
+    a, w0 = 1.004, 0.7
+    x = a**j * np.cos(w0 * j)
+    psi_j = qj.signal_ztmps(x, method="cross", cutoff=1e-12, maxdim=64)
+    c = psi_j.chain
+    psi_t = mps_from_numpy(np.asarray(c.cores), np.asarray(c.ranks),
+                           np.asarray(c.amplitude), paired=True)
+    kw = dict(coarse_points=64, fine_points=32, superfine_half=4,
+              cutoff=1e-12, maxdim=64, readout="direct")
+    res_j = qj.coarse_to_fine_pole_search(psi_j, cache_dir=str(tmp_path),
+                                          **kw)
+    n_artifacts = len(list(tmp_path.glob("zt_analytic_*.npz")))
+    res_t = qt.ZTPipeline(n, cache_dir=str(tmp_path)).find_poles(psi_t, **kw)
+    assert len(list(tmp_path.glob("zt_analytic_*.npz"))) == n_artifacts == 2
+    for stage in ("coarse", "fine", "superfine"):
+        sj, st = getattr(res_j, stage), getattr(res_t, stage)
+        assert int(st.k_peak) == int(sj.k_peak), stage
+        assert int(st.l_peak) == int(sj.l_peak), stage
+    z_poles = [(1 / a) * np.exp(-1j * w0), (1 / a) * np.exp(1j * w0)]
+    assert min(abs(complex(res_t.z_pole) - zp) for zp in z_poles) < 5e-2
+
+
+def test_apply_readout_not_ported_yet():
+    psi = qt.tighten(qt.signal_ztmps_cross(sin_decay(4), cutoff=1e-12))
+    with pytest.raises(NotImplementedError, match="apply"):
+        qt.coarse_to_fine_pole_search(psi, readout="auto", cache=False)
+    with pytest.raises(NotImplementedError, match="gate"):
+        qt.zt_mpo(4, 0.5, engine="gate")
