@@ -1,23 +1,49 @@
 """Smoke run of the PyTorch port (qilaplace_tpu_torch) on one CUDA card.
 
-Drives the port's main path once, the n=30 zT pole scan that bench.py
-times for the JAX package, and checks it:
+Drives the port's two paths once each at full size and checks them:
 
 1. env       torch / CUDA versions, the card, its power limit;
-2. build     kernel K1 from qilaplace_tpu_torch/csrc with nvcc (sm_90a);
+2. build     kernels K1 and K2 from qilaplace_tpu_torch/csrc, one nvcc each,
+             in parallel (sm_90a); registers, shared memory and spills;
 3. K1 check  K1 against its plain torch version (run in complex128) on the
-             card: the main-path shape (60 sites, chi 256, the 4096 scan
+             card: the zT path's shape (60 sites, chi 256, the 4096 scan
              configurations), a chi=8 chain with B=5, a chi=32 chain with
              B=1000; tolerance max |delta| / max |ref| <= 1e-5;
-4. main path n=30: cross encode of the sin_decay signal, analytic build of
+4. K2 check  K2 against its plain torch version (same sweeps, same dtype, on
+             the card) on seeded Hermitian inputs: the QFT path's shapes at
+             its sweep counts (c64 m = 24, 40, 80; f32 m = 56, B = 1 and 8),
+             the route's edges at default sweeps (m = 2, 120 = the largest
+             shared-memory m, 122, 256, 512; B = 4), a clustered spectrum
+             (default and 12 sweeps) and a zero-padded input. Eigenvalues
+             against the plain version within jacobi_kernels.tolerance
+             (1e-5, 5e-5 from m = 256); V^H V - I, the residual and the
+             eigenvalues against float64 eigh within the same bar, or
+             twice the plain version's own figure on the same input where
+             that is larger (jacobi_kernels.rounding_bar; both figures are
+             logged);
+5. zT path n=30: cross encode of the sin_decay signal, analytic build of
              the zT factor pack, assembly on the card, direct readout of
              the 4096 scan points (zipper_chain + K1), scored against the
              closed-form oracle; then the multi_sin_exp family through the
              same entry point (the factored route). Median of 3 after a
-             warm-up;
-5. pole      ZTPipeline(30).find_poles(readout="direct"); the pole must lie
+             warm-up; K1 launches counted over the path;
+6. pole      ZTPipeline(30).find_poles(readout="direct"); the pole must lie
              within 64 * 2 pi / N of e^{-lambda +- i w};
-6. timing    K1 against its plain version on the main path's own chain.
+7. QFT path n=28: QFTPipeline(28, chi=64, cutoff=1e-9) on the sin signal
+             (2^28 float32 samples, made on the card): rsvd encode (k=50,
+             p=5, q=2), the gate-built QFT operator, the zip-up apply and a
+             K1 readout at 4096 frequencies, each stage timed (median of 3
+             after a warm-up), scored against the closed-form DFT; K1 and K2
+             launches and plain Jacobi calls on the card counted over the
+             path; error bar 0.1 (a broken path, not the device route's
+             f32 accuracy); the readout (K1 at the output state's chi 64)
+             against K1's plain version in complex128 within 1e-5; then
+             n=16 with the bar 8e-3; then K2 against its plain version, as
+             in 4, at every (m, B, dtype, sweeps) the two runs launched it
+             with;
+8. timing    K1 against its plain version on the zT path's chain; K2
+             against its plain version and torch.linalg.eigh at the QFT
+             path's shapes, CUDA events, in turns.
 
 Every failure raises. Without a CUDA device the script exits nonzero at
 once. The last line of stdout is one JSON object naming the device.
@@ -46,6 +72,12 @@ CUTOFF = 1e-12
 K1_TOL = 1e-5        # max |kernel - plain(c128)| / max |plain(c128)|
 ACC_BAR = 1e-5       # max_err_rel_peak bar for both signal families
 MPO_BOND = 57        # the zT operator's bond at n=30, cutoff 1e-12
+QFT_BITS = 28        # the reference's published QFT size ("n=28 :sin")
+QFT_CHI, QFT_CUTOFF = 64, 1e-9
+QFT_ENCODE = dict(method="rsvd", k=50, p=5, q=2)
+QFT_BARS = {28: 0.1, 16: 8e-3}  # max_err_rel_peak bars (see the docstring)
+PEAK_FP32 = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s
 
 
 def log(*args):
@@ -170,14 +202,27 @@ def phase_env():
 
 
 def phase_build():
-    from qilaplace_tpu_torch.ops.readout_kernels import build_k1
+    from qilaplace_tpu_torch.ops.kernel_build import build_kernels
+    from qilaplace_tpu_torch.ops.jacobi_kernels import SOURCE as K2_SOURCE
+    from qilaplace_tpu_torch.ops.readout_kernels import SOURCE as K1_SOURCE
 
-    info = build_k1()
-    log(f"[build] K1 {'reused' if info['cached'] else 'built'} in "
-        f"{info['seconds']:.2f} s -> {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build]   {line.strip()}")
+    t0 = time.perf_counter()
+    infos = build_kernels(K1_SOURCE, K2_SOURCE)  # one nvcc each, in parallel
+    log(f"[build] K1 + K2 ready in {time.perf_counter() - t0:.2f} s")
+    for name, info in infos.items():
+        log(f"[build] {name} {'reused' if info['cached'] else 'built'} in "
+            f"{info['seconds']:.2f} s -> {info['path']}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build]   {line.strip()}")
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the operations at the card's
+    fp32 peak and the bytes at its memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def random_chain(rng, n, chi, dev):
@@ -235,7 +280,7 @@ def phase_main_path(dev, ks, ls, configs):
     def setup():
         t0 = time.perf_counter()
         psi = qt.tighten(qt.signal_ztmps_cross(
-            sin_decay_fn(N_BITS), cutoff=CUTOFF, maxdim=CHI))
+            sin_decay_fn(N_BITS), cutoff=CUTOFF, maxdim=CHI, device="cpu"))
         t_enc = time.perf_counter() - t0
         t0 = time.perf_counter()
         pack = qt.zt_product_pack(N_BITS, WR, cutoff=CUTOFF, maxdim=CHI)
@@ -275,7 +320,8 @@ def phase_main_path(dev, ks, ls, configs):
         f"({'K1' if chi_eff <= 256 else 'factored'})")
 
     f2 = multi_sin_exp_fn(N_BITS)
-    psi2 = qt.tighten(qt.signal_ztmps_cross(f2, cutoff=CUTOFF, maxdim=CHI))
+    psi2 = qt.tighten(qt.signal_ztmps_cross(f2, cutoff=CUTOFF, maxdim=CHI,
+                                            device="cpu"))
     psi2 = psi2.to(dev, torch.float32)
     vals2, t_scan2 = scan(W, psi2)
     check(bool(torch.isfinite(torch.view_as_real(vals2)).all()),
@@ -333,18 +379,271 @@ def phase_timing(chain, cfg, smi):
         ms_kernel.append(event_ms(kernel))
         ms_plain.append(event_ms(plain))
     ms_k, ms_p = float(np.median(ms_kernel)), float(np.median(ms_plain))
-    flops = 8.0 * cfg.shape[0] * chain.n * chain.chi**2
-    log(f"[time] K1 on the main chain (n {chain.n}, chi {chain.chi}, B "
-        f"{cfg.shape[0]}): kernel {ms_k:.3f} ms ({flops / ms_k / 1e6:.1f} "
-        f"GFLOP/s), plain c64 {ms_p:.3f} ms; max_abs_err {err:.3e} rel "
-        f"{rel:.3e}; card {smi}")
-    return err, ms_k, ms_p
+    B, n, chi = cfg.shape[0], chain.n, chain.chi
+    # the selected branch only: one complex MAC (8 flops) per (row, k, j)
+    flops = 8.0 * B * n * chi**2
+    nbytes = chain.cores.numel() * 8 + cfg.numel() * 4 + B * 8
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"[time] K1 on the main chain (n {n}, chi {chi}, B {B}): kernel "
+        f"{ms_k:.3f} ms ({flops / ms_k / 1e6:.1f} GFLOP/s), plain c64 "
+        f"{ms_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); max_abs_err "
+        f"{err:.3e} rel {rel:.3e}; card {smi}")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+# ------------------------------ kernel K2 -----------------------------------
+
+def hermitian(rng, B, m, complex_=True, spectrum=None, rank=None):
+    """[B, m, m] Hermitian test matrices made with numpy: Gaussian, or
+    U diag(spectrum) U^H, or the Gram matrix of a rank-``rank`` block
+    zero-padded to m."""
+    def gauss(*s):
+        return rng.normal(size=s) + (1j * rng.normal(size=s) if complex_
+                                     else 0)
+
+    if spectrum is not None:
+        U, _ = np.linalg.qr(gauss(B, m, m))
+        H = (U * np.asarray(spectrum)) @ np.conj(np.swapaxes(U, -1, -2))
+    elif rank is not None:
+        H = np.zeros((B, m, m), dtype=complex)
+        X = gauss(B, m // 2, rank)
+        H[:, : m // 2, : m // 2] = X @ np.conj(np.swapaxes(X, -1, -2))
+    else:
+        A = gauss(B, m, m)
+        H = (A + np.conj(np.swapaxes(A, -1, -2))) / 2
+    return H.astype(np.complex64 if complex_ else np.float32)
+
+
+def k2_case(name, H, sweeps):
+    """K2 against its plain version (same sweeps, same dtype, on the card):
+    eigenvalues within jacobi_kernels.tolerance, the other figures within
+    jacobi_kernels.rounding_bar of the plain version's own. Logs both and
+    returns the eigenvalues' max abs error."""
+    from qilaplace_tpu_torch.ops import jacobi_kernels as jk
+
+    m = H.shape[-1]
+    lam, V = jk.jacobi_eigh_k2(H, sweeps=sweeps)
+    torch.cuda.synchronize()
+    lam_p, V_p = jk.jacobi_eigh_k2_reference(H, sweeps=sweeps)
+    scale = float(lam_p.abs().max().clamp_min(1e-30))
+    abs_err = float((lam - lam_p).abs().max())
+    tol = jk.tolerance(m)
+    got, plain = jk.figures(H, lam, V), jk.figures(H, lam_p, V_p)
+    log(f"[k2] {name}: lam {abs_err / scale:.2e} (tol {tol:.0e}); "
+        + "; ".join(f"{k} {v:.2e} plain {plain[k]:.2e} (bar "
+                    f"{jk.rounding_bar(m, plain[k]):.1e})"
+                    for k, v in got.items()))
+    check(abs_err / scale <= tol,
+          f"K2 lam {abs_err / scale:.2e} > {tol:.0e} ({name})")
+    for k, v in got.items():
+        bar = jk.rounding_bar(m, plain[k])
+        check(v <= bar, f"K2 {k} {v:.2e} > {bar:.1e} ({name})")
+    return abs_err
+
+
+def phase_k2_check(dev):
+    from qilaplace_tpu_torch.ops.jacobi import default_sweeps, fast_sweeps
+    from qilaplace_tpu_torch.ops.jacobi_kernels import SMEM_MAX_M
+
+    rng = np.random.default_rng(2026)
+    cases = [(f"c64 m={m} B=1 sweeps={sw}", hermitian(rng, 1, m), sw)
+             for m, sw in ((24, 5), (40, 6), (80, 4), (80, 6))]
+    cases += [(f"f32 m=56 B={B} sweeps={fast_sweeps(56)}",
+               hermitian(rng, B, 56, complex_=False), fast_sweeps(56))
+              for B in (1, 8)]
+    cases += [(f"c64 m={m} B=4 default sweeps", hermitian(rng, 4, m),
+               default_sweeps(m))
+              for m in (2, SMEM_MAX_M, SMEM_MAX_M + 2, 256, 512)]
+    # clusters converge more slowly: at default sweeps the plain version's
+    # own residual stays above 1e-5 (logged beside the kernel's), at 12 both
+    # are converged
+    clustered = hermitian(rng, 2, 24, spectrum=np.repeat(
+        [-2.0, 0.5, 0.5000001, 3.0], 6))
+    cases += [(f"c64 m=24 B=2 clustered spectrum, {sw} sweeps", clustered, sw)
+              for sw in (default_sweeps(24), 12)]
+    cases.append(("c64 m=24 B=2 zero-padded rank 3, default sweeps",
+                  hermitian(rng, 2, 24, rank=3), default_sweeps(24)))
+    return max(k2_case(name, torch.from_numpy(H).to(dev), sweeps)
+               for name, H, sweeps in cases)
+
+
+def phase_k2_path_shapes(dev, shapes):
+    """K2 against its plain version at every (m, B, dtype, sweeps) the QFT
+    path launched it with."""
+    rng = np.random.default_rng(2027)
+    worst = 0.0
+    for m, B, kind, sweeps in sorted(shapes):
+        H = hermitian(rng, B, m, complex_=kind == "c64")
+        worst = max(worst, k2_case(f"path {kind} m={m} B={B} sweeps={sweeps}",
+                                   torch.from_numpy(H).to(dev), sweeps))
+    return worst
+
+
+def phase_k2_timing(smi):
+    """K2 against its plain version and torch.linalg.eigh at the QFT path's
+    shapes, in turns; returns one record per shape."""
+    from qilaplace_tpu_torch.ops.jacobi import fast_sweeps
+    from qilaplace_tpu_torch.ops.jacobi_kernels import (
+        jacobi_eigh_k2,
+        jacobi_eigh_k2_reference,
+    )
+
+    rng = np.random.default_rng(7)
+    shapes = [(24, 1, True, 5), (40, 1, True, fast_sweeps(40)),
+              (80, 1, True, fast_sweeps(80)), (56, 8, False, fast_sweeps(56))]
+    out = []
+    for m, B, cplx, sweeps in shapes:
+        H = torch.from_numpy(hermitian(rng, B, m, complex_=cplx)).to("cuda")
+        kernel = lambda: jacobi_eigh_k2(H, sweeps=sweeps)  # noqa: E731
+        plain = lambda: jacobi_eigh_k2_reference(H, sweeps=sweeps)  # noqa: E731
+        library = lambda: torch.linalg.eigh(H)  # noqa: E731
+        kernel(), plain(), library()  # warm-up
+        ms = {"kernel": [], "plain": [], "library": []}
+        for _ in range(2):  # in turns: plain, kernel, kernel, plain
+            ms["plain"].append(event_ms(plain, reps=3))
+            ms["kernel"].append(event_ms(kernel, reps=20))
+            ms["kernel"].append(event_ms(kernel, reps=20))
+            ms["plain"].append(event_ms(plain, reps=3))
+            ms["library"].append(event_ms(library, reps=20))
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        rounds = sweeps * (m - 1)
+        # a round: 2x2 blocks of G on both sides and V's column pairs,
+        # 30 m^2 flops complex (9 m^2 real); each input read once, each
+        # output written once
+        flops = B * rounds * (30 if cplx else 9) * m * m
+        elem = 8 if cplx else 4
+        nbytes = B * (m * m * elem + m * 4 + m * m * elem)
+        bound_ms, bound_by = bound(flops, nbytes)
+        rec = dict(shape=f"{'c64' if cplx else 'f32'} m={m} B={B} "
+                   f"sweeps={sweeps}", ms=med["kernel"],
+                   plain_ms=med["plain"], library_ms=med["library"],
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[time] K2 {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms, torch.linalg.eigh "
+            f"{rec['library_ms']:.4f} ms, bound {bound_ms:.2e} ms "
+            f"({bound_by}); card {smi}")
+        out.append(rec)
+    return out
+
+
+# ------------------------------ QFT path ------------------------------------
+
+def sin_spectrum(n, ks):
+    """Unitary DFT X_k of x_j = sin(a j), a = 1/N, in closed form (float64):
+    N^-1/2 (G(a - 2 pi k/N) - G(-a - 2 pi k/N)) / 2i with
+    G(t) = (1 - e^{i t N}) / (1 - e^{i t}). Since t N = +-1 - 2 pi k, the
+    numerators are 1 - e^{+-i}; 1 - e^{i t} = -2i sin(t/2) e^{i t/2} keeps
+    the small denominators accurate."""
+    N = 2**n
+    ks = np.asarray(ks, dtype=np.float64)
+
+    def G(sign):
+        t = sign / N - 2 * np.pi * (ks / N)
+        den = -2j * np.sin(t / 2) * np.exp(1j * t / 2)
+        return (1 - np.exp(1j * sign)) / den
+
+    return (G(1.0) - G(-1.0)) / (2j * np.sqrt(N))
+
+
+def qft_freqs(n):
+    """4096 read frequencies: 2048 in [0, 256) u (N - 256, N), 2048 uniform
+    over [0, N), from a seeded generator."""
+    N = 2**n
+    rng = np.random.default_rng(28)
+    near = rng.integers(0, 511, 2048)
+    near = np.where(near < 256, near, N - 511 + near)
+    return np.concatenate([near, rng.integers(0, N, 2048)])
+
+
+def phase_qft(dev, n, runs=3):
+    """QFTPipeline(n) on the card: build, encode, apply, read, each stage
+    timed; median of ``runs`` after a warm-up. Returns the error and the
+    launch counts of one run."""
+    import qilaplace_tpu_torch as qt
+    from qilaplace_tpu_torch.core.mps import _chain
+    from qilaplace_tpu_torch.ops.jacobi import jacobi_eigh
+    from qilaplace_tpu_torch.ops.jacobi_kernels import jacobi_eigh_k2
+    from qilaplace_tpu_torch.ops.readout_kernels import (
+        coefficient_batch_k1,
+        coefficient_batch_k1_reference,
+    )
+    from qilaplace_tpu_torch.utils.bits import tensor_int_to_bits
+
+    ks = qft_freqs(n)
+    freqs = torch.from_numpy(ks).to(dev)
+    x, t_signal = synced(lambda: qt.generate_signal(n, device=dev))
+
+    def one_run():
+        pipe, t_build = synced(lambda: qt.QFTPipeline(
+            n, chi=QFT_CHI, cutoff=QFT_CUTOFF, device=dev))
+        psi, t_enc = synced(lambda: pipe.encode(x, **QFT_ENCODE))
+        out, t_apply = synced(lambda: pipe.forward(psi))
+        got, t_read = synced(lambda: pipe.spectrum(out, freqs))
+        stages = dict(encode_s=t_enc, build_s=t_build, apply_s=t_apply,
+                      read_s=t_read)
+        return stages, (pipe, psi, out, got)
+
+    one_run()  # warm-up
+    runs_out = []
+    for i in range(runs):
+        if i == 0:  # count the launches of one full run
+            coefficient_batch_k1.launches = 0
+            jacobi_eigh_k2.launches = 0
+            jacobi_eigh_k2.by_shape.clear()
+            jacobi_eigh.cuda_calls = 0
+        stages, res = one_run()
+        if i == 0:
+            counts = dict(k1=coefficient_batch_k1.launches,
+                          k2=jacobi_eigh_k2.launches,
+                          k2_by_shape=dict(jacobi_eigh_k2.by_shape),
+                          plain_cuda=jacobi_eigh.cuda_calls)
+        runs_out.append((sum(stages.values()), stages, res))
+    total, stages, (pipe, psi, out, got) = sorted(
+        runs_out, key=lambda r: r[0])[len(runs_out) // 2]
+    check(got.shape == (len(ks),), "QFT readout shape")
+    # the readout at the output state's own shape (chi 64, complex64)
+    # against K1's plain version in complex128 on the same configs
+    cfg = tensor_int_to_bits(freqs, n, order="lsb", device=dev).to(torch.int32)
+    ref = coefficient_batch_k1_reference(
+        _chain(out).to(dtype=torch.complex128), cfg)
+    k1_rel = float((got.to(torch.complex128) - ref).abs().max()
+                   / ref.abs().max())
+    log(f"[qft] n={n}: readout (K1, chi {_chain(out).chi}) vs plain c128: "
+        f"rel {k1_rel:.3e} (tol {K1_TOL:g})")
+    check(k1_rel <= K1_TOL, f"K1 disagrees with its plain version on the "
+          f"QFT n={n} output state")
+    got = got.cpu().numpy().astype(np.complex128)
+    check(bool(np.isfinite(got).all()), "QFT readout not finite")
+    want = sin_spectrum(n, ks)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"[qft] n={n}: total {total:.4f} s = encode_s "
+        f"{stages['encode_s']:.4f} + build_s {stages['build_s']:.4f} + "
+        f"apply_s {stages['apply_s']:.4f} + read_s {stages['read_s']:.4f} "
+        f"(signal {t_signal:.4f} s, not counted)")
+    log(f"[qft] n={n}: max_err_rel_peak {err:.3e} (bar {QFT_BARS[n]:g}); "
+        f"ranks W {qt.max_bond(pipe.mpo)} psi {qt.max_bond(psi)} out "
+        f"{qt.max_bond(out)}")
+    by_shape = ", ".join(f"({kind} m={m}, B={B}, sweeps={sw}): {c}"
+                         for (m, B, kind, sw), c in
+                         sorted(counts["k2_by_shape"].items()))
+    log(f"[qft] n={n}: launches K1 {counts['k1']} K2 {counts['k2']} "
+        f"[{by_shape}]; plain Jacobi calls on the card "
+        f"{counts['plain_cuda']}")
+    check(counts["k2"] > 0, f"the QFT path n={n} never launched K2")
+    check(counts["k1"] > 0, f"the QFT readout n={n} never launched K1")
+    check(counts["plain_cuda"] == 0,
+          f"the QFT path n={n} ran the plain Jacobi solver on the card")
+    check(np.isfinite(err) and err <= QFT_BARS[n],
+          f"QFT n={n} max_err_rel_peak {err:.3e} > {QFT_BARS[n]:g}")
+    return err, counts
 
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
     import qilaplace_tpu_torch  # noqa: F401  (sets full-fp32 matmuls)
+    from qilaplace_tpu_torch.ops.jacobi_kernels import jacobi_eigh_k2
     from qilaplace_tpu_torch.ops.readout_kernels import coefficient_batch_k1
 
     dev = torch.device("cuda", 0)
@@ -353,24 +652,53 @@ def main():
     ks, ls, cfg_np = scan_samples(N_BITS)
     configs = torch.from_numpy(cfg_np).to(dev)
     phase_k1_check(dev, configs)
+    k2_err = phase_k2_check(dev)
 
     coefficient_batch_k1.launches = 0
+    jacobi_eigh_k2.launches = 0
     chain = phase_main_path(dev, ks, ls, configs)
-    launches = coefficient_batch_k1.launches
-    log(f"[main] K1 launches on the main path: {launches}")
-    check(launches > 0, "the main path never launched K1")
+    k1_zt = coefficient_batch_k1.launches
+    log(f"[main] K1 launches on the zT path: {k1_zt} (K2: "
+        f"{jacobi_eigh_k2.launches})")
+    check(k1_zt > 0, "the zT path never launched K1")
 
     phase_pole(dev)
-    err, ms_k, ms_p = phase_timing(chain, configs, smi)
+    qft_err, qft_counts = phase_qft(dev, QFT_BITS)
+    _, qft16_counts = phase_qft(dev, 16)
+    k2_err = max(k2_err, phase_k2_path_shapes(
+        dev, set(qft_counts["k2_by_shape"]) | set(qft16_counts["k2_by_shape"])))
+    k1 = phase_timing(chain, configs, smi)
+    k2_times = phase_k2_timing(smi)
+    # K2's line: its most launched shape on the QFT path (the build's
+    # two-site polish, m = 24); every shape's numbers are logged above
+    k2 = k2_times[0]
     log(json.dumps({"kernels": [{
         "name": "coefficient_batch_k1",
         "route": "cuda",
         "source": "qilaplace_tpu_torch/csrc/coefficient_batch.cu",
         "replaces": "qilaplace_tpu/ops/pallas_kernels.py:58",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms_k,
-        "plain_ms": ms_p,
+        "launches": k1_zt,
+        "launches_qft": qft_counts["k1"],
+        "max_abs_err": k1["max_abs_err"],
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "jacobi_eigh_k2",
+        "route": "cuda",
+        "source": "qilaplace_tpu_torch/csrc/jacobi_eigh.cu",
+        "replaces": "qilaplace_tpu/ops/jacobi.py:302",
+        "launches": qft_counts["k2"],
+        "max_abs_err": k2_err,
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
+        "shape": k2["shape"],
+        "qft_max_err_rel_peak": qft_err,
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Static-shape MPO containers.
 
-Counterpart of ``qilaplace_tpu/core/mpo.py``. A core is
+Counterpart of ``qilaplace_tpu/core/mpo.py`` (containers, ``mpo_repad``,
+``max_bond``, ``identity_mpo`` and ``mpo_to_dense``). A core is
 ``W[l, s_out, s_in, r]``, stacked and zero-padded as ``cores[n, chi, 2, 2,
 chi]`` with int32 ``ranks[n+1]``; ``PairedSiteMPO`` is a thin view of its
 interleaved 2n-site chain.
@@ -13,7 +14,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from qilaplace_tpu_torch.utils.config import bucket_for
+from qilaplace_tpu_torch.utils.config import (
+    bucket_for,
+    resolve_device,
+    to_torch_dtype,
+)
 
 
 @dataclasses.dataclass
@@ -52,8 +57,10 @@ class MPO:
 
     @staticmethod
     def from_core_list(core_list, chi: int | None = None,
-                       *, device="cpu") -> "MPO":
-        """Stack variable-size cores ``[l_i, 2, 2, r_i]`` into a padded MPO."""
+                       *, device=None) -> "MPO":
+        """Stack variable-size cores ``[l_i, 2, 2, r_i]`` into a padded MPO
+        on ``device`` (the card unless told otherwise)."""
+        device = resolve_device(device)
         core_list = [np.asarray(c) for c in core_list]
         n = len(core_list)
         ranks = [1] + [c.shape[3] for c in core_list]
@@ -106,6 +113,31 @@ def _mpo_chain(W) -> MPO:
 
 def _mpo_rewrap(W, chain: MPO):
     return PairedSiteMPO(chain=chain) if isinstance(W, PairedSiteMPO) else chain
+
+
+def identity_mpo(n: int, *, chi: int = 1, dtype=torch.complex64,
+                 paired: bool = False, device=None):
+    """Identity operator on n sites (2n chain sites if ``paired``), on
+    ``device`` (the card unless told otherwise)."""
+    n_chain = 2 * n if paired else n
+    eye = np.zeros((1, 2, 2, 1))
+    eye[0, :, :, 0] = np.eye(2)
+    W = MPO.from_core_list([eye] * n_chain, chi=chi, device=device)
+    W = MPO(cores=W.cores.to(to_torch_dtype(dtype)), ranks=W.ranks)
+    return PairedSiteMPO(chain=W) if paired else W
+
+
+def mpo_to_dense(W) -> torch.Tensor:
+    """Dense operator matrix [2^n, 2^n] with site 1 = most significant bit
+    on both the row (s_out) and column (s_in) index. Small n only."""
+    m = _mpo_chain(W)
+    n = m.n
+    T = m.cores[0][0]  # [2, 2, chi]
+    for i in range(1, n):
+        T = torch.tensordot(T, m.cores[i], dims=([T.dim() - 1], [0]))
+    T = T[..., 0]  # axes: o1, i1, o2, i2, ...
+    perm = [2 * i for i in range(n)] + [2 * i + 1 for i in range(n)]
+    return T.permute(*perm).reshape(2**n, 2**n)
 
 
 def mpo_repad(W, chi_new: int):

@@ -1,7 +1,9 @@
 """Static-shape MPS containers.
 
-Counterpart of ``qilaplace_tpu/core/mps.py`` (containers, ``validate``,
-``repad`` and the coefficient readouts; the sweeps are not ported yet).
+Counterpart of ``qilaplace_tpu/core/mps.py``: containers, ``validate``,
+``repad``, the coefficient readouts, the dense readout and norm, and the
+canonicalizing and compressing sweeps (``lax.scan`` there, Python loops
+here; truncation is mask-based, ops/truncation.py).
 Layout is the JAX package's: all site tensors in one zero-padded stack
 ``cores[n, chi, 2, chi]``, valid bond dimensions in ``ranks[n+1]`` (int32,
 ``ranks[0] == ranks[n] == 1``) and the original signal 2-norm in
@@ -16,7 +18,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from qilaplace_tpu_torch.utils.config import bucket_for, real_dtype
+from qilaplace_tpu_torch.ops.truncation import svd_split
+from qilaplace_tpu_torch.utils.config import (
+    bucket_for,
+    real_dtype,
+    resolve_device,
+)
 
 
 @dataclasses.dataclass
@@ -64,8 +71,10 @@ class MPS:
 
     @staticmethod
     def from_core_list(core_list, amplitude=1.0, chi: int | None = None,
-                       *, device="cpu") -> "MPS":
-        """Stack variable-size cores ``[l_i, 2, r_i]`` into a padded MPS."""
+                       *, device=None) -> "MPS":
+        """Stack variable-size cores ``[l_i, 2, r_i]`` into a padded MPS on
+        ``device`` (the card unless told otherwise)."""
+        device = resolve_device(device)
         core_list = [np.asarray(c) for c in core_list]
         n = len(core_list)
         ranks = [1] + [c.shape[2] for c in core_list]
@@ -266,3 +275,177 @@ def repad(psi, chi_new: int):
         cores = m.cores[:, :chi_new, :, :chi_new].contiguous()
     ranks = torch.clamp(m.ranks, max=chi_new)
     return _rewrap(psi, MPS(cores=cores, ranks=ranks, amplitude=m.amplitude))
+
+
+# ------------------------------ dense readout ------------------------------
+
+def mps_to_vector(psi, *, reverse: bool = False) -> torch.Tensor:
+    """Full dense vector (small n only: materializes 2^n entries).
+
+    reverse=False: natural order (site 1 = MSB, matching the input signal).
+    reverse=True: raw bit-reversed order (the native output order of the
+    QFT / DT / zT operators).
+    """
+    m = _chain(psi)
+    n = m.n
+    T = m.cores[0][0]  # [2, chi]
+    for i in range(1, n):
+        T = torch.tensordot(T, m.cores[i], dims=([T.dim() - 1], [0]))
+    T = T[..., 0]  # [2]*n, axis i = site i
+    if reverse:
+        T = T.permute(*range(n - 1, -1, -1))
+    return T.reshape(-1) * m.amplitude
+
+
+def norm(psi) -> torch.Tensor:
+    """Euclidean norm sqrt(<psi|psi>) of the tensor data (the stored
+    amplitude excluded)."""
+    m = _chain(psi)
+    E = torch.zeros(m.chi, m.chi, dtype=m.dtype, device=m.device)
+    E[0, 0] = 1
+    for core in m.cores:
+        E = torch.einsum("ab,asr,bsq->rq", E, core.conj(), core)
+    return torch.sqrt(E[0, 0].abs())
+
+
+# ------------------------------ canonicalize -------------------------------
+
+def _sweep_right(cores, ranks, *, cutoff, maxdim, start: int, stop: int):
+    """Left-orthogonalize sites [start, stop): SVD-split each core and
+    absorb the remainder into the next site. Returns (cores, ranks)."""
+    chi = cores.shape[1]
+    maxdim = min(maxdim, chi)
+    if stop - start < 1:
+        return cores, ranks
+    R = torch.eye(chi, dtype=cores.dtype, device=cores.device)
+    new, seg_ranks = [], []
+    for i in range(start, stop):
+        core = torch.einsum("ab,bsr->asr", R, cores[i])
+        p = core.shape[1]
+        Q, R, rank = svd_split(core.reshape(chi * p, chi), cutoff=cutoff,
+                               maxdim=maxdim, absorb="right", out_dim=chi)
+        new.append(Q.reshape(chi, p, chi))
+        seg_ranks.append(rank)
+    cores = cores.clone()
+    cores[start:stop] = torch.stack(new)
+    cores[stop] = torch.einsum("ab,bsr->asr", R, cores[stop])
+    ranks = ranks.clone()
+    ranks[start + 1: stop + 1] = torch.stack(seg_ranks)
+    return cores, ranks
+
+
+def _sweep_left(cores, ranks, *, cutoff, maxdim, start: int, stop: int):
+    """Right-orthogonalize sites (stop, start] sweeping right to left; the
+    remainder is absorbed into site stop."""
+    chi = cores.shape[1]
+    maxdim = min(maxdim, chi)
+    if start - stop < 1:
+        return cores, ranks
+    L = torch.eye(chi, dtype=cores.dtype, device=cores.device)
+    new, seg_ranks = {}, {}
+    for i in range(start, stop, -1):
+        core = torch.einsum("lsb,ba->lsa", cores[i], L)
+        p = core.shape[1]
+        L, Q, rank = svd_split(core.reshape(chi, p * chi), cutoff=cutoff,
+                               maxdim=maxdim, absorb="left", out_dim=chi)
+        new[i] = Q.reshape(chi, p, chi)
+        seg_ranks[i] = rank
+    idx = range(stop + 1, start + 1)
+    cores = cores.clone()
+    cores[stop + 1: start + 1] = torch.stack([new[i] for i in idx])
+    cores[stop] = torch.einsum("lsb,ba->lsa", cores[stop], L)
+    ranks = ranks.clone()
+    ranks[stop + 1: start + 1] = torch.stack([seg_ranks[i] for i in idx])
+    return cores, ranks
+
+
+def canonicalize(psi, direction: str, *, center: int | None = None,
+                 cutoff: float = 1e-12, maxdim: int | None = None):
+    """Bring the MPS into canonical form.
+
+    direction='right': left-canonical up to ``center`` (default last site);
+    direction='left':  right-canonical down to ``center`` (default site 0).
+    Truncation uses the SVD-with-cutoff semantics of ops/truncation.py.
+    """
+    m = _chain(psi)
+    n, chi = m.n, m.chi
+    if maxdim is None:
+        maxdim = chi
+    if direction == "right":
+        c = n - 1 if center is None else center
+        cores, ranks = _sweep_right(m.cores, m.ranks, cutoff=cutoff,
+                                    maxdim=maxdim, start=0, stop=c)
+    elif direction == "left":
+        c = 0 if center is None else center
+        cores, ranks = _sweep_left(m.cores, m.ranks, cutoff=cutoff,
+                                   maxdim=maxdim, start=n - 1, stop=c)
+    else:
+        raise ValueError("direction must be 'right' or 'left'")
+    return _rewrap(psi, MPS(cores=cores, ranks=ranks, amplitude=m.amplitude))
+
+
+# -------------------------------- compress ---------------------------------
+
+def _two_site_sweep(cores, ranks, *, cutoff, maxdim, reverse: bool):
+    """One truncating two-site SVD sweep (left to right unless
+    ``reverse``). Generic in the physical dimension p (2 for MPS chains,
+    4 for MPO chains with fused (s_out, s_in) legs)."""
+    n, chi, p = cores.shape[0], cores.shape[1], cores.shape[2]
+    maxdim = min(maxdim, chi)
+    bond_ranks = [None] * (n - 1)
+    out = [None] * n
+    if not reverse:
+        left = cores[0]
+        for i in range(1, n):
+            T = torch.einsum("lsa,atr->lstr", left, cores[i])
+            L, R, rank = svd_split(T.reshape(chi * p, p * chi), cutoff=cutoff,
+                                   maxdim=maxdim, absorb="right", out_dim=chi)
+            out[i - 1] = L.reshape(chi, p, chi)
+            bond_ranks[i - 1] = rank
+            left = R.reshape(chi, p, chi)
+        out[n - 1] = left
+    else:
+        right = cores[n - 1]
+        for i in range(n - 2, -1, -1):
+            T = torch.einsum("lsa,atr->lstr", cores[i], right)
+            L, R, rank = svd_split(T.reshape(chi * p, p * chi), cutoff=cutoff,
+                                   maxdim=maxdim, absorb="left", out_dim=chi)
+            out[i + 1] = R.reshape(chi, p, chi)
+            bond_ranks[i] = rank
+            right = L.reshape(chi, p, chi)
+        out[0] = right
+    ranks = ranks.clone()
+    if n > 1:
+        ranks[1:n] = torch.stack(bond_ranks)
+    return torch.stack(out), ranks
+
+
+def compress(psi, *, maxdim: int | None = None, tol: float = 1e-12,
+             sweeps: int = 1):
+    """Truncate bond dimensions by alternating two-site SVD sweeps and
+    renormalize, absorbing the norm into ``amplitude`` (per-bond cutoff
+    budget tol^2 / ((n - 1) sweeps))."""
+    m = _chain(psi)
+    n, chi = m.n, m.chi
+    if n < 2:
+        raise ValueError("compress: MPS must have at least 2 sites")
+    if maxdim is None:
+        maxdim = chi
+    cutoff = tol**2 / ((n - 1) * sweeps)
+
+    out = canonicalize(m, "left")
+    cores, ranks = out.cores, out.ranks
+    for _ in range(sweeps):
+        cores, ranks = _two_site_sweep(cores, ranks, cutoff=cutoff,
+                                       maxdim=maxdim, reverse=False)
+        cores, ranks = _two_site_sweep(cores, ranks, cutoff=cutoff,
+                                       maxdim=maxdim, reverse=True)
+    out = canonicalize(MPS(cores=cores, ranks=ranks, amplitude=m.amplitude),
+                       "left")
+    nrm = norm(out)
+    safe = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+    cores = out.cores.clone()
+    cores[0] = cores[0] * (1.0 / safe).to(out.dtype)
+    amplitude = torch.where(nrm == 0, m.amplitude,
+                            m.amplitude * nrm.to(m.amplitude.dtype))
+    return _rewrap(psi, MPS(cores=cores, ranks=out.ranks, amplitude=amplitude))

@@ -1,21 +1,76 @@
-"""End-to-end zT pipeline.
+"""End-to-end transform pipelines.
 
-Counterpart of ``qilaplace_tpu/models/pipelines.py`` (``ZTPipeline``
-only): cross-interpolation encode in host f64, the analytic operator
-behind its artifact cache, and the direct <config|W|psi> readout.
+Counterpart of ``qilaplace_tpu/models/pipelines.py`` (``QFTPipeline`` and
+``ZTPipeline``; ``DTPipeline`` waits for the DT gate builder). Each bundles
+encode -> build MPO -> apply -> read out, on ``device`` (the card unless
+told otherwise):
+
+* ``QFTPipeline``: spectrum analysis. rsvd or TT-SVD encode, the
+  gate-built QFT operator, the zip-up apply, and a readout of the output
+  state through kernel K1 (ops/readout_kernels.py) at chosen frequencies;
+* ``ZTPipeline``: the full z-transform with pole identification: cross
+  (default, host f64), rsvd or TT-SVD encode, the analytic operator behind
+  its artifact cache, the zip-up apply, and the direct <config|W|psi>
+  readout.
 """
 
 from __future__ import annotations
 
 import torch
 
+from qilaplace_tpu_torch.core.mps import MPS, _chain, _rewrap
+from qilaplace_tpu_torch.ops.apply import apply
+from qilaplace_tpu_torch.ops.readout_kernels import coefficient_batch_k1
 from qilaplace_tpu_torch.scan.pole_scan import (
     chi_grid_direct,
     coarse_to_fine_pole_search,
     tighten,
 )
 from qilaplace_tpu_torch.signals.cross_encode import signal_ztmps_cross
+from qilaplace_tpu_torch.signals.encode import signal_mps, signal_ztmps
+from qilaplace_tpu_torch.transforms.qft import build_qft_mpo
 from qilaplace_tpu_torch.transforms.zt import zt_mpo
+from qilaplace_tpu_torch.utils.bits import tensor_int_to_bits
+from qilaplace_tpu_torch.utils.config import resolve_device
+
+
+class QFTPipeline:
+    """Signal -> frequency-domain MPS -> coefficient readout, on
+    ``device``."""
+
+    def __init__(self, n: int, *, chi: int = 64, cutoff: float = 1e-12,
+                 build_cutoff: float = 1e-14,
+                 dtype: torch.dtype = torch.complex64, device=None):
+        self.n = n
+        self.chi = chi
+        self.cutoff = cutoff
+        self.device = resolve_device(device)
+        self.mpo = build_qft_mpo(n, cutoff=build_cutoff, dtype=dtype,
+                                 device=self.device)
+
+    def encode(self, x, *, method: str = "svd", **kw):
+        return signal_mps(x, method=method, cutoff=self.cutoff,
+                          maxdim=self.chi, chi=self.chi, device=self.device,
+                          **kw)
+
+    def forward(self, psi):
+        return apply(self.mpo, psi, maxdim=self.chi, cutoff=self.cutoff)
+
+    def spectrum(self, psi_out, freqs) -> torch.Tensor:
+        """Coefficients at integer frequency indices ``freqs`` (natural
+        order; the bit reversal is part of the readout configs). Read by
+        K1: on the card it launches the kernel, on the CPU it takes the
+        plain version."""
+        m = _chain(psi_out)
+        configs = tensor_int_to_bits(freqs, self.n, order="lsb",
+                                     device=m.device)
+        configs = configs.to(torch.int32).contiguous()
+        chain = MPS(cores=m.cores.contiguous(), ranks=m.ranks,
+                    amplitude=m.amplitude)
+        return coefficient_batch_k1(_rewrap(psi_out, chain), configs)
+
+    def __call__(self, x, freqs):
+        return self.spectrum(self.forward(self.encode(x)), freqs)
 
 
 class ZTPipeline:
@@ -26,7 +81,7 @@ class ZTPipeline:
                  dtype: torch.dtype = torch.complex64,
                  engine: str = "analytic", readout: str = "auto",
                  cache: bool = True, cache_dir: str | None = None,
-                 device="cpu"):
+                 device=None):
         self.n = n
         self.chi = chi
         self.cutoff = cutoff
@@ -36,7 +91,7 @@ class ZTPipeline:
         self.readout = readout
         self.cache = cache
         self.cache_dir = cache_dir
-        self.device = device
+        self.device = resolve_device(device)
         self._mpo_cache: dict = {}
 
     def mpo(self, wr: float):
@@ -50,14 +105,20 @@ class ZTPipeline:
         return self._mpo_cache[wr]
 
     def encode(self, x, *, method: str = "cross", **kw):
-        if method != "cross":
-            raise NotImplementedError(
-                f"ZTPipeline.encode: method {method!r} is not ported yet "
-                "(ROADMAP queue 1, item 9: signals + device encoders)"
-            )
-        return signal_ztmps_cross(x, cutoff=self.cutoff,
-                                  maxdim=min(self.chi, 256), chi=self.chi,
-                                  device=self.device, **kw)
+        if method == "cross":
+            return signal_ztmps_cross(x, cutoff=self.cutoff,
+                                      maxdim=min(self.chi, 256), chi=self.chi,
+                                      device=self.device, **kw)
+        if method == "rsvd":
+            kw.setdefault("k", 50)
+            kw.setdefault("p", 5)
+            kw.setdefault("q", 2)
+        return signal_ztmps(x, method=method, cutoff=self.cutoff,
+                            maxdim=self.chi, chi=self.chi,
+                            device=self.device, **kw)
+
+    def forward(self, psi_z, wr: float):
+        return apply(self.mpo(wr), psi_z, maxdim=self.chi, cutoff=self.cutoff)
 
     def chi_grid_direct(self, psi_z, ks, ls, *, wr):
         """Direct <config|W|psi> grid; no intermediate product state."""

@@ -9,27 +9,21 @@ bounds the kernel on the card and how the design answers that.
 plain torch version (:func:`coefficient_batch_k1_reference`); a chain on a
 CUDA device goes to the kernel, which is compiled with ``nvcc`` for
 ``sm_90a`` at first use into ``build/kernels/`` (keyed by a hash of the
-source) and bound through ``ctypes``. Anything the kernel does not take
-raises; nothing falls back. Importing this module builds nothing.
+source; ops/kernel_build.py) and bound through ``ctypes``. Anything the
+kernel does not take raises; nothing falls back. Importing this module
+builds nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
 from qilaplace_tpu_torch.core.mps import coefficient_batch
+from qilaplace_tpu_torch.ops.kernel_build import load_kernel
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "coefficient_batch.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCE = "coefficient_batch.cu"
 MAX_CHI = 256  # must match MAX_CHI in the CUDA source
 
 
@@ -42,45 +36,11 @@ def coefficient_batch_k1_reference(chain, configs) -> torch.Tensor:
     return coefficient_batch(chain, configs)
 
 
-@functools.lru_cache(maxsize=1)
-def _build() -> tuple[ctypes.CDLL, dict]:
-    """Compile the kernel (once per source hash) and load it."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("K1 build: no CUDA toolkit found (CUDA_HOME)")
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"coefficient_batch_{digest}.so"
-    info = {"path": str(lib_path), "cached": lib_path.exists(),
-            "seconds": 0.0, "log": ""}
-    if not lib_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", tmp, str(_SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"K1 build failed:\n{info['log']}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.qlt_coefficient_batch
+def _kernel():
+    fn = load_kernel(SOURCE).qlt_coefficient_batch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib, info
-
-
-def build_k1() -> dict:
-    """Build (or reuse) and load the kernel; returns the build's path,
-    seconds and compiler log (registers and shared memory per ``-Xptxas
-    -v``)."""
-    return _build()[1]
+    return fn
 
 
 def coefficient_batch_k1(chain, configs) -> torch.Tensor:
@@ -118,10 +78,10 @@ def coefficient_batch_k1(chain, configs) -> torch.Tensor:
     out = torch.empty(B, dtype=torch.complex64, device=cores.device)
     if B == 0:
         return out
-    lib, _ = _build()
+    fn = _kernel()
     with torch.cuda.device(cores.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.qlt_coefficient_batch(
+        err = fn(
             cores.data_ptr(), configs.data_ptr(), amp.data_ptr(),
             out.data_ptr(), B, n, chi, stream,
         )

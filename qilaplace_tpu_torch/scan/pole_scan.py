@@ -2,7 +2,7 @@
 
 Counterpart of ``qilaplace_tpu/scan/pole_scan.py`` for the direct route
 (``chi_grid_direct``, ``coarse_to_fine_pole_search(readout="direct")``);
-the apply-then-read route waits for the port of ``ops/apply.apply``.
+the apply-then-read route waits for the port of ``chi_grid`` / ``pole_scan``.
 
 Coordinate conventions: s(k, l) = (wr k + i wi l) / N, z(k, l) = e^{-s(k, l)},
 chi(k, l) read out at interleaved LSB-first (k, l) bits. ``z_from_kl`` and
@@ -150,7 +150,7 @@ def coarse_to_fine_pole_search(
     ``readout="direct"`` contracts <config| W |psi> per grid point;
     ``"auto"`` resolves to "direct" for 32-bit states and to "apply" for
     64-bit ones, as in the JAX package. The "apply" route raises
-    NotImplementedError until ``ops/apply.apply`` is ported.
+    NotImplementedError until ``chi_grid`` / ``pole_scan`` are ported.
     """
     n = psi_z.n
     N = 2**n
@@ -162,8 +162,8 @@ def coarse_to_fine_pole_search(
     if readout != "direct":
         raise NotImplementedError(
             f"coarse_to_fine_pole_search: readout {readout!r} needs "
-            "ops/apply.apply, which is not ported yet (ROADMAP queue 1, "
-            "item 11: apply + compose)"
+            "chi_grid / pole_scan (apply, then read the product state), "
+            "which are not ported yet (ROADMAP queue 1)"
         )
     psi_tight = tighten(psi_z)
 

@@ -22,7 +22,7 @@ from qilaplace_tpu_torch.transforms.analytic import (
     _validate_cross,
     cross_tt,
 )
-from qilaplace_tpu_torch.utils.config import to_torch_dtype
+from qilaplace_tpu_torch.utils.config import resolve_device, to_torch_dtype
 
 
 def _bit_sampler(n: int):
@@ -204,7 +204,7 @@ def signal_mps_cross(
     seed: int = 1234,
     validate_tol: float | None = None,
     dtype=None,
-    device="cpu",
+    device=None,
 ) -> MPS:
     """Encode a signal into a SignalMPS by cross-interpolation (host f64).
 
@@ -212,12 +212,14 @@ def signal_mps_cross(
     sample indices with an ``n_bits`` attribute. Same cutoff semantics and
     container layout as ``signal_mps``; see the module docstring for why
     this route exists. The cores are cast to ``dtype`` on the host and
-    placed on ``device``.
+    placed on ``device`` (the card unless told otherwise).
     """
+    device = resolve_device(device)
     cores, amp, _ = _host_cores_and_amp(
         x, cutoff=cutoff, maxdim=maxdim, seed=seed, validate_tol=validate_tol
     )
-    return _place(MPS.from_core_list(cores, amplitude=amp, chi=chi),
+    return _place(MPS.from_core_list(cores, amplitude=amp, chi=chi,
+                                     device="cpu"),
                   _out_dtype(x, dtype), device)
 
 
@@ -230,13 +232,15 @@ def signal_ztmps_cross(
     seed: int = 1234,
     validate_tol: float | None = None,
     dtype=None,
-    device="cpu",
+    device=None,
 ) -> ZTMPS:
     """Encode a signal into the paired-register ZTMPS by cross-interpolation
-    + exact fan-out + one deterministic compression sweep (host f64)."""
+    + exact fan-out + one deterministic compression sweep (host f64); the
+    chain lands on ``device`` (the card unless told otherwise)."""
+    device = resolve_device(device)
     cores, amp, _ = _host_cores_and_amp(
         x, cutoff=cutoff, maxdim=maxdim, seed=seed, validate_tol=validate_tol
     )
     pair = _compress_host(_fan_out_pairs(cores), cutoff, maxdim)
-    chain = MPS.from_core_list(pair, amplitude=amp, chi=chi)
+    chain = MPS.from_core_list(pair, amplitude=amp, chi=chi, device="cpu")
     return ZTMPS(chain=_place(chain, _out_dtype(x, dtype), device))

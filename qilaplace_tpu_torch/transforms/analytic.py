@@ -26,7 +26,11 @@ import numpy as np
 import torch
 
 from qilaplace_tpu_torch.core.mpo import MPO, PairedSiteMPO
-from qilaplace_tpu_torch.utils.config import bucket_for, dtype_name
+from qilaplace_tpu_torch.utils.config import (
+    bucket_for,
+    dtype_name,
+    resolve_device,
+)
 
 TWO_PI = 2.0 * np.pi
 
@@ -741,7 +745,7 @@ def analytic_zt_mpo(
     dtype: torch.dtype = torch.complex64,
     seed: int = 7,
     validate_tol: float | None = None,
-    device="cpu",
+    device=None,
 ) -> PairedSiteMPO:
     """z-transform MPO evaluated from its closed-form kernel (host f64):
     rail crosses (damping main, QFT copy) + exact interleave + one
@@ -753,8 +757,10 @@ def analytic_zt_mpo(
     realized rank rounded up); ``validate_tol`` bounds the spot-check
     error against the kernel (relative to the kernel's max magnitude over
     the samples; default scales as sqrt(n * cutoff)). The finished
-    operator is cast to ``dtype`` on the host and placed on ``device``.
+    operator is cast to ``dtype`` on the host and placed on ``device``
+    (the card unless told otherwise).
     """
+    device = resolve_device(device)
     rail_tol = _rail_tol(cutoff)
     dmain_x = _cross_rail(
         damp_rail_kernel(n, float(wr)), n, maxdim=64,

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from qilaplace_tpu_torch.core.mpo import PairedSiteMPO
+from qilaplace_tpu_torch.utils.config import resolve_device
 
 
 def zt_mpo(
@@ -23,7 +24,7 @@ def zt_mpo(
     dtype: torch.dtype = torch.complex64,
     cache: bool = True,
     cache_dir: str | None = None,
-    device="cpu",
+    device=None,
     chi_work: int | None = None,
 ) -> PairedSiteMPO:
     """Production zT MPO: engine dispatch plus artifact cache.
@@ -33,8 +34,9 @@ def zt_mpo(
     (transforms/analytic.py). ``cache=True`` persists the finished operator
     as an .npz artifact keyed on (engine, n, wr, cutoff, maxdim, chi,
     dtype), readable by the JAX package too. The operator lands on
-    ``device``.
+    ``device`` (the card unless told otherwise).
     """
+    device = resolve_device(device)
     if engine == "gate":
         raise NotImplementedError(
             "zt_mpo: engine 'gate' is not ported yet "

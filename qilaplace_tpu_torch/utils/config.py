@@ -25,6 +25,27 @@ def bucket_for(chi: int) -> int:
     return int(chi)
 
 
+def default_device() -> torch.device:
+    """Where the port's entry points run unless told otherwise: the card.
+    There is no fallback: without a CUDA device, callers that take the
+    default fail, and host runs (the tests, host-only helpers) pass
+    ``device="cpu"``."""
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or :func:`default_device` for None; raises when the
+    default is asked for and there is no CUDA device."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run on the host"
+        )
+    return default_device()
+
+
 def set_highest_precision() -> None:
     """Full-float32 matmuls everywhere (no TF32 in matmul or cuDNN)."""
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -17,7 +17,7 @@ import torch
 
 from qilaplace_tpu_torch.core.mpo import MPO, PairedSiteMPO
 from qilaplace_tpu_torch.core.mps import MPS, ZTMPS
-from qilaplace_tpu_torch.utils.config import dtype_name
+from qilaplace_tpu_torch.utils.config import dtype_name, resolve_device
 
 
 def _split(prefix: str, arr: torch.Tensor, out: dict) -> None:
@@ -50,9 +50,10 @@ def save(path: str, obj, *, compress: bool = True) -> None:
     (np.savez_compressed if compress else np.savez)(path, **out)
 
 
-def load(path: str, *, device="cpu"):
+def load(path: str, *, device=None):
     """Load a container saved by :func:`save` (by either package) onto
-    ``device``."""
+    ``device`` (the card unless told otherwise)."""
+    device = resolve_device(device)
     data = dict(np.load(path, allow_pickle=False))
     kind = str(data["kind"])
     cores = _join("cores", data, device)
@@ -89,9 +90,10 @@ def _atomic_write(path: str, write) -> None:
 
 
 def cached_mpo(name: str, build_fn, *, cache_dir: str | None = None,
-               device="cpu"):
+               device=None):
     """Load ``<cache_dir>/<name>.npz`` onto ``device`` if present, else run
     ``build_fn()``, persist and return. Returns ``(W, cache_hit)``."""
+    device = resolve_device(device)
     if cache_dir is None:
         cache_dir = default_cache_dir()
     os.makedirs(cache_dir, exist_ok=True)
@@ -113,12 +115,13 @@ def cached_zt_mpo(
     dtype=torch.complex64,
     chi_work: int | None = None,
     cache_dir: str | None = None,
-    device="cpu",
+    device=None,
     engine: str = "analytic",
 ):
     """zT MPO behind the persistent artifact cache, keyed on (engine, n, wr,
     cutoff, maxdim, chi, dtype, chi_work) exactly as the JAX package keys
     it. Only ``engine="analytic"`` is ported. Returns ``(W, cache_hit)``."""
+    device = resolve_device(device)
     if engine != "analytic":
         raise NotImplementedError(
             f"cached_zt_mpo: engine {engine!r} is not ported yet "

@@ -55,7 +55,8 @@ def test_assemble_product_cores_matches(n, wr):
 def test_analytic_zt_mpo_matches(n, wr):
     kw = dict(cutoff=1e-12, maxdim=128)
     Wj = ja.analytic_zt_mpo(n, wr, dtype=np.complex128, **kw)
-    Wt = qt.analytic_zt_mpo(n, wr, dtype=torch.complex128, **kw)
+    Wt = qt.analytic_zt_mpo(n, wr, dtype=torch.complex128, device="cpu",
+                            **kw)
     assert np.array_equal(Wt.chain.ranks.numpy(), np.asarray(Wj.chain.ranks))
     assert np.abs(Wt.chain.cores.numpy() - np.asarray(Wj.chain.cores)).max() \
         <= TOL

@@ -35,7 +35,7 @@ def test_mps_from_core_list_repad_and_coefficients(seed, ranks, chi):
     cores = random_cores(rng, ranks)
     amp = 1.7
     psi_j = jmps.MPS.from_core_list(cores, amplitude=amp, chi=chi)
-    psi_t = qt.MPS.from_core_list(cores, amplitude=amp, chi=chi)
+    psi_t = qt.MPS.from_core_list(cores, amplitude=amp, chi=chi, device="cpu")
     assert psi_t.cores.shape == psi_j.cores.shape
     assert np.array_equal(psi_t.cores.numpy(), np.asarray(psi_j.cores))
     assert np.array_equal(psi_t.ranks.numpy(), np.asarray(psi_j.ranks))
@@ -61,7 +61,8 @@ def test_mps_from_core_list_repad_and_coefficients(seed, ranks, chi):
 
 def test_validate_and_repad_reject_bad_chains():
     rng = np.random.default_rng(3)
-    psi = qt.MPS.from_core_list(random_cores(rng, [1, 2, 3, 1]), chi=8)
+    psi = qt.MPS.from_core_list(random_cores(rng, [1, 2, 3, 1]), chi=8,
+                                device="cpu")
     bad = psi.cores.clone()
     bad[1, 5, 0, 0] = 1.0  # data outside the valid ranks[1] x ranks[2] block
     broken = qt.MPS(cores=bad, ranks=psi.ranks, amplitude=psi.amplitude)
@@ -82,7 +83,7 @@ def test_paired_mpo_containers(seed, ranks):
     rng = np.random.default_rng(seed)
     cores = random_cores(rng, ranks, phys=(2, 2))
     W_j = jmpo.PairedSiteMPO(chain=jmpo.MPO.from_core_list(cores))
-    W_t = qt.PairedSiteMPO(chain=qt.MPO.from_core_list(cores))
+    W_t = qt.PairedSiteMPO(chain=qt.MPO.from_core_list(cores, device="cpu"))
     assert np.array_equal(W_t.chain.cores.numpy(), np.asarray(W_j.chain.cores))
     assert qt.max_bond(W_t) == int(jmpo.max_bond(W_j))
     qt.validate(W_t)
@@ -113,9 +114,9 @@ def test_paired_config_from_kl(n):
 def test_artifacts_load_in_both_packages(tmp_path):
     rng = np.random.default_rng(6)
     psi_t = qt.ZTMPS(chain=qt.MPS.from_core_list(
-        random_cores(rng, [1, 2, 3, 2, 1]), amplitude=2.5))
+        random_cores(rng, [1, 2, 3, 2, 1]), amplitude=2.5, device="cpu"))
     W_t = qt.PairedSiteMPO(chain=qt.MPO.from_core_list(
-        random_cores(rng, [1, 3, 4, 3, 1], phys=(2, 2))).to(
+        random_cores(rng, [1, 3, 4, 3, 1], phys=(2, 2)), device="cpu").to(
             dtype=torch.complex64))
     for obj in (psi_t, W_t):
         path = str(tmp_path / f"{type(obj).__name__}.npz")
@@ -126,9 +127,10 @@ def test_artifacts_load_in_both_packages(tmp_path):
                               obj.chain.cores.numpy())
         path2 = str(tmp_path / f"{type(obj).__name__}_jax.npz")
         jio.save(path2, back_j)
-        back_t = tio.load(path2)
+        back_t = tio.load(path2, device="cpu")
         assert type(back_t) is type(obj)
         assert back_t.chain.cores.dtype == obj.chain.cores.dtype
         assert torch.equal(back_t.chain.cores, obj.chain.cores)
         assert torch.equal(back_t.chain.ranks, obj.chain.ranks)
-    assert float(tio.load(str(tmp_path / "ZTMPS.npz")).amplitude) == 2.5
+    assert float(tio.load(str(tmp_path / "ZTMPS.npz"),
+                          device="cpu").amplitude) == 2.5

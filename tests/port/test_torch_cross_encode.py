@@ -24,7 +24,7 @@ TOL = 1e-12
 def test_ztmps_cross_matches(n):
     kw = dict(cutoff=1e-12, maxdim=128)
     pj = j_ztmps_cross(sin_decay(n), **kw)
-    pt = qt.signal_ztmps_cross(sin_decay(n), **kw)
+    pt = qt.signal_ztmps_cross(sin_decay(n), device="cpu", **kw)
     assert pt.chain.cores.dtype == torch.float64
     assert np.array_equal(pt.chain.ranks.numpy(), np.asarray(pj.chain.ranks))
     assert np.abs(pt.chain.cores.numpy() - np.asarray(pj.chain.cores)).max() \
@@ -40,7 +40,7 @@ def test_mps_cross_vector_keeps_dtype():
     n = 9
     x = sin_decay(n)(np.arange(2**n)).astype(np.float32)
     pj = j_mps_cross(x, cutoff=1e-10, maxdim=64)
-    pt = qt.signal_mps_cross(x, cutoff=1e-10, maxdim=64)
+    pt = qt.signal_mps_cross(x, cutoff=1e-10, maxdim=64, device="cpu")
     assert pt.cores.dtype == torch.float32
     assert np.array_equal(pt.ranks.numpy(), np.asarray(pj.ranks))
     assert np.array_equal(pt.cores.numpy(), np.asarray(pj.cores))

@@ -79,7 +79,8 @@ def test_slice_on_card_matches_cpu(cuda_device, tmp_path):
     from port_helpers import sin_decay
 
     n = 8
-    psi = qt.tighten(qt.signal_ztmps_cross(sin_decay(n), cutoff=1e-12))
+    psi = qt.tighten(qt.signal_ztmps_cross(sin_decay(n), cutoff=1e-12,
+                                           device="cpu"))
     pack = qt.zt_product_pack(n, 2 * math.pi, cutoff=1e-12, maxdim=128)
     rng = np.random.default_rng(1)
     ks, ls = rng.integers(0, 2**n, 200), rng.integers(0, 2**n, 200)

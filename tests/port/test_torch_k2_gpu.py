@@ -1,0 +1,133 @@
+"""Kernel K2 on the card against its plain torch version and float64 eigh.
+
+Needs a CUDA card (marker ``gpu``; skips here without one) and imports no
+JAX, so it also runs where only the port is installed:
+
+    python -m pytest tests/port/test_torch_k2_gpu.py -m gpu --confcutdir=tests/port
+
+Each case checks max |lam_K2 - lam_plain| / max |lam| (the plain version
+with the same sweeps, in the same dtype on the card) against
+``jacobi_kernels.tolerance`` (1e-5, 5e-5 from m = 256), and
+||V^H V - I||_max, ||H V - V diag(lam)||_max / ||H||_max and lam against
+``torch.linalg.eigh`` in float64 against ``jacobi_kernels.rounding_bar``:
+the same bar, or twice the plain version's own figure on the same input
+where that is larger (its float32 rounding floor, or its unconverged
+residual after few sweeps).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from qilaplace_tpu_torch.ops import jacobi_kernels as jk
+from qilaplace_tpu_torch.ops.jacobi import default_sweeps, fast_sweeps, jacobi_eigh
+
+
+def hermitian(rng, B, m, complex_=True, spectrum=None, rank=None):
+    """[B, m, m] Hermitian test matrices: Gaussian, or U diag(spectrum) U^H,
+    or the Gram matrix of a rank-``rank`` block zero-padded to m."""
+    cplx = lambda *s: rng.normal(size=s) + (1j * rng.normal(size=s) if complex_ else 0)  # noqa: E731
+    if spectrum is not None:
+        U, _ = np.linalg.qr(cplx(B, m, m))
+        H = (U * np.asarray(spectrum)[None, None, :]) @ np.conj(np.swapaxes(U, -1, -2))
+    elif rank is not None:
+        H = np.zeros((B, m, m), dtype=complex)
+        X = cplx(B, m // 2, rank)
+        H[:, : m // 2, : m // 2] = X @ np.conj(np.swapaxes(X, -1, -2))
+    else:
+        A = cplx(B, m, m)
+        H = (A + np.conj(np.swapaxes(A, -1, -2))) / 2
+    return H.astype(np.complex64 if complex_ else np.float32)
+
+
+def check(H_np, sweeps, device):
+    H = torch.from_numpy(H_np).to(device)
+    m = H.shape[-1]
+    before = jk.jacobi_eigh_k2.launches
+    lam, V = jk.jacobi_eigh_k2(H, sweeps=sweeps)
+    torch.cuda.synchronize()
+    assert jk.jacobi_eigh_k2.launches == before + 1
+    assert lam.dtype == torch.float32 and V.dtype == H.dtype
+    lam_p, V_p = jk.jacobi_eigh_k2_reference(H, sweeps=sweeps)
+    scale = float(lam_p.abs().max().clamp_min(1e-30))
+    assert float((lam - lam_p).abs().max()) / scale <= jk.tolerance(m)
+    got, plain = jk.figures(H, lam, V), jk.figures(H, lam_p, V_p)
+    for k, v in got.items():
+        assert v <= jk.rounding_bar(m, plain[k]), (k, v, plain[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,sweeps", [(24, 5), (40, 6), (80, 4)])
+def test_k2_path_shapes_complex(cuda_device, m, sweeps):
+    rng = np.random.default_rng(m)
+    check(hermitian(rng, 1, m), sweeps, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8])
+def test_k2_path_shape_real(cuda_device, B):
+    rng = np.random.default_rng(56 + B)
+    check(hermitian(rng, B, 56, complex_=False), fast_sweeps(56), cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,B", [(2, 1), (4, 1), (8, 1), (16, 1), (32, 1),
+                                 (56, 2), (56, 6)])
+@pytest.mark.parametrize("polish", [False, True])
+def test_k2_encoder_shapes(cuda_device, m, B, polish):
+    # the rsvd encoder's real solves: fast sweeps, and the 4-sweep polish
+    rng = np.random.default_rng(100 * m + B)
+    check(hermitian(rng, B, m, complex_=False), 4 if polish else fast_sweeps(m),
+          cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, jk.SMEM_MAX_M, jk.SMEM_MAX_M + 2, 256, 512])
+def test_k2_route_edges(cuda_device, m):
+    rng = np.random.default_rng(m)
+    check(hermitian(rng, 4, m), default_sweeps(m), cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sweeps", [default_sweeps(24), 12])
+def test_k2_degenerate_spectrum(cuda_device, sweeps):
+    # clusters converge more slowly: at default sweeps (7) the plain version
+    # itself leaves a residual above 1e-5, which the kernel may share; at 12
+    # both are converged
+    rng = np.random.default_rng(7)
+    spectrum = np.repeat([-2.0, 0.5, 0.5000001, 3.0], 6)
+    check(hermitian(rng, 2, 24, spectrum=spectrum), sweeps, cuda_device)
+
+
+@pytest.mark.gpu
+def test_k2_zero_padded(cuda_device):
+    rng = np.random.default_rng(8)
+    check(hermitian(rng, 2, 24, rank=3), default_sweeps(24), cuda_device)
+
+
+@pytest.mark.gpu
+def test_k2_rejects_what_it_does_not_take(cuda_device):
+    H = torch.eye(6, dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(ValueError):
+        jk.jacobi_eigh_k2(H[:5, :5])
+    with pytest.raises(TypeError):
+        jk.jacobi_eigh_k2(H.to(torch.complex128))
+    with pytest.raises(ValueError):
+        jk.jacobi_eigh_k2(torch.eye(514, dtype=torch.complex64,
+                                    device=cuda_device))
+
+
+@pytest.mark.gpu
+def test_device_route_takes_k2_on_the_card(cuda_device):
+    from qilaplace_tpu_torch.ops.truncation import truncated_svd
+
+    rng = np.random.default_rng(3)
+    M = torch.from_numpy((rng.normal(size=(128, 8)) @ rng.normal(size=(8, 128))
+                          ).astype(np.complex64)).to(cuda_device)
+    before, plain = jk.jacobi_eigh_k2.launches, jacobi_eigh.cuda_calls
+    U, s, Vh, rank = truncated_svd(M, cutoff=1e-12, maxdim=16)
+    assert jk.jacobi_eigh_k2.launches > before
+    assert jacobi_eigh.cuda_calls == plain
+    assert int(rank) == 8
+    rec = (U * s.to(U.dtype)) @ Vh
+    assert float((rec - M).abs().max() / M.abs().max()) < 1e-4

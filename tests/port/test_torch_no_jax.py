@@ -1,20 +1,29 @@
 """The port imports no JAX and builds nothing at import time."""
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+PORT_FILES = sorted(Path(REPO, "qilaplace_tpu_torch").rglob("*.py"))
 
 CODE = """
+import importlib
+import pkgutil
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import qilaplace_tpu_torch
-import qilaplace_tpu_torch.ops.readout_kernels as rk
-import qilaplace_tpu_torch.utils.interop
+import qilaplace_tpu_torch.ops.kernel_build as kb
+for mod in pkgutil.walk_packages(qilaplace_tpu_torch.__path__,
+                                 "qilaplace_tpu_torch."):
+    importlib.import_module(mod.name)
 assert not any(m == "jax" or m.startswith(("jax.", "qilaplace_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
-assert rk._build.cache_info().currsize == 0  # nothing compiled on import
+assert not kb._LOADED  # nothing compiled on import
 print("IMPORT_OK")
 """
 
@@ -28,3 +37,21 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "IMPORT_OK" in proc.stdout
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES + [Path(REPO, "chip_smoke.py")],
+    ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_import_anywhere_in_the_source(path):
+    """Also the imports inside functions, which importing never runs."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "qilaplace_tpu"), (
+                f"{path}: imports {name}")

@@ -32,9 +32,11 @@ def paired_pair(seed, n, w_ranks, p_ranks):
         random_cores(rng, w_ranks, phys=(2, 2))))
     pj = JZTMPS(chain=JMPS.from_core_list(random_cores(rng, p_ranks),
                                           amplitude=1.3))
-    Wt = mpo_from_numpy(np.asarray(Wj.chain.cores), np.asarray(Wj.chain.ranks))
+    Wt = mpo_from_numpy(np.asarray(Wj.chain.cores), np.asarray(Wj.chain.ranks),
+                        device="cpu")
     pt = mps_from_numpy(np.asarray(pj.chain.cores), np.asarray(pj.chain.ranks),
-                        np.asarray(pj.chain.amplitude), paired=True)
+                        np.asarray(pj.chain.amplitude), paired=True,
+                        device="cpu")
     cfg = rng.integers(0, 2, (41, 2 * n)).astype(np.int32)
     return Wj, pj, Wt, pt, cfg
 
@@ -65,7 +67,7 @@ def test_apply_coefficient_batch_matches(seed, n, w_ranks, p_ranks):
 def _port(psi):
     chain = psi.chain if isinstance(psi, JZTMPS) else psi
     return mps_from_numpy(np.asarray(chain.cores), np.asarray(chain.ranks),
-                          np.asarray(chain.amplitude))
+                          np.asarray(chain.amplitude), device="cpu")
 
 
 def _pallas_cases():
@@ -101,7 +103,8 @@ def test_k1_plain_matches_pallas_interpret(case):
 def test_k1_wrapper_routes_cpu_to_plain_version():
     rng = np.random.default_rng(7)
     chain = qt.MPS.from_core_list(random_cores(rng, [1, 4, 8, 8, 4, 1]),
-                                  amplitude=0.7).to(dtype=torch.complex64)
+                                  amplitude=0.7, device="cpu").to(
+                                      dtype=torch.complex64)
     cfg = torch.from_numpy(rng.integers(0, 2, (9, 5)).astype(np.int32))
     before = rk.coefficient_batch_k1.launches
     got = rk.coefficient_batch_k1(chain, cfg)

@@ -38,7 +38,8 @@ def slice_states():
                                         **kw))
     W_j = jps.tighten(qj.analytic_zt_mpo(N_BITS, WR, dtype=np.complex128,
                                          **kw))
-    psi_t = qt.tighten(qt.signal_ztmps_cross(sin_decay(N_BITS), **kw))
+    psi_t = qt.tighten(qt.signal_ztmps_cross(sin_decay(N_BITS), device="cpu",
+                                             **kw))
     pack = qt.zt_product_pack(N_BITS, WR, **kw)
     W_t = qt.tighten(qt.mpo_from_pack(pack, device="cpu",
                                       dtype=torch.complex128))
@@ -108,13 +109,14 @@ def test_pole_search_direct_matches_jax(tmp_path):
     psi_j = qj.signal_ztmps(x, method="cross", cutoff=1e-12, maxdim=64)
     c = psi_j.chain
     psi_t = mps_from_numpy(np.asarray(c.cores), np.asarray(c.ranks),
-                           np.asarray(c.amplitude), paired=True)
+                           np.asarray(c.amplitude), paired=True, device="cpu")
     kw = dict(coarse_points=64, fine_points=32, superfine_half=4,
               cutoff=1e-12, maxdim=64, readout="direct")
     res_j = qj.coarse_to_fine_pole_search(psi_j, cache_dir=str(tmp_path),
                                           **kw)
     n_artifacts = len(list(tmp_path.glob("zt_analytic_*.npz")))
-    res_t = qt.ZTPipeline(n, cache_dir=str(tmp_path)).find_poles(psi_t, **kw)
+    res_t = qt.ZTPipeline(n, cache_dir=str(tmp_path),
+                          device="cpu").find_poles(psi_t, **kw)
     assert len(list(tmp_path.glob("zt_analytic_*.npz"))) == n_artifacts == 2
     for stage in ("coarse", "fine", "superfine"):
         sj, st = getattr(res_j, stage), getattr(res_t, stage)
@@ -125,8 +127,9 @@ def test_pole_search_direct_matches_jax(tmp_path):
 
 
 def test_apply_readout_not_ported_yet():
-    psi = qt.tighten(qt.signal_ztmps_cross(sin_decay(4), cutoff=1e-12))
+    psi = qt.tighten(qt.signal_ztmps_cross(sin_decay(4), cutoff=1e-12,
+                                           device="cpu"))
     with pytest.raises(NotImplementedError, match="apply"):
         qt.coarse_to_fine_pole_search(psi, readout="auto", cache=False)
     with pytest.raises(NotImplementedError, match="gate"):
-        qt.zt_mpo(4, 0.5, engine="gate")
+        qt.zt_mpo(4, 0.5, engine="gate", device="cpu")
