@@ -10,10 +10,11 @@ Drives the port's two paths once each at full size and checks them:
              configurations), a chi=8 chain with B=5, a chi=32 chain with
              B=1000; tolerance max |delta| / max |ref| <= 1e-5;
 4. K2 check  K2 against its plain torch version (same sweeps, same dtype, on
-             the card) on seeded Hermitian inputs: the QFT path's shapes at
+             the card; the share of bit-identical entries is logged) on
+             seeded Hermitian inputs: the QFT path's shapes at
              its sweep counts (c64 m = 24, 40, 80; f32 m = 56, B = 1 and 8),
-             the route's edges at default sweeps (m = 2, 120 = the largest
-             shared-memory m, 122, 256, 512; B = 4), a clustered spectrum
+             the route's edges at default sweeps (m = 2, 84 = the largest
+             shared-memory m, 86, 256, 512; B = 4), a clustered spectrum
              (default and 12 sweeps) and a zero-padded input. Eigenvalues
              against the plain version within jacobi_kernels.tolerance
              (1e-5, 5e-5 from m = 256); V^H V - I, the residual and the
@@ -43,7 +44,13 @@ Drives the port's two paths once each at full size and checks them:
              with;
 8. timing    K1 against its plain version on the zT path's chain; K2
              against its plain version and torch.linalg.eigh at the QFT
-             path's shapes, CUDA events, in turns.
+             path's shapes, CUDA events, in turns, with K2's time per
+             Jacobi round;
+9. trace     torch.profiler (CPU and CUDA activity) over one n=28 QFT
+             build and one apply after the timed runs: K2's summed device
+             time and launches, all kernels' device time, the stage's wall
+             time under the profiler and the card's busy share (the union
+             of device activity over that wall time).
 
 Every failure raises. Without a CUDA device the script exits nonzero at
 once. The last line of stdout is one JSON object naming the device.
@@ -430,10 +437,13 @@ def k2_case(name, H, sweeps):
     abs_err = float((lam - lam_p).abs().max())
     tol = jk.tolerance(m)
     got, plain = jk.figures(H, lam, V), jk.figures(H, lam_p, V_p)
+    same = (float((lam == lam_p).double().mean()),
+            float((V == V_p).double().mean()))
     log(f"[k2] {name}: lam {abs_err / scale:.2e} (tol {tol:.0e}); "
         + "; ".join(f"{k} {v:.2e} plain {plain[k]:.2e} (bar "
                     f"{jk.rounding_bar(m, plain[k]):.1e})"
-                    for k, v in got.items()))
+                    for k, v in got.items())
+        + f"; bit-identical to plain: lam {same[0]:.1%}, V {same[1]:.1%}")
     check(abs_err / scale <= tol,
           f"K2 lam {abs_err / scale:.2e} > {tol:.0e} ({name})")
     for k, v in got.items():
@@ -519,10 +529,13 @@ def phase_k2_timing(smi):
                    f"sweeps={sweeps}", ms=med["kernel"],
                    plain_ms=med["plain"], library_ms=med["library"],
                    bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[time] K2 {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.3f} ms, torch.linalg.eigh "
-            f"{rec['library_ms']:.4f} ms, bound {bound_ms:.2e} ms "
-            f"({bound_by}); card {smi}")
+        per_round = {k: 1e3 * v / rounds for k, v in med.items()}  # us
+        log(f"[time] K2 {rec['shape']} ({rounds} rounds): kernel "
+            f"{rec['ms']:.4f} ms ({per_round['kernel']:.3f} us a round), "
+            f"plain {rec['plain_ms']:.3f} ms ({per_round['plain']:.1f} us a "
+            f"round), torch.linalg.eigh {rec['library_ms']:.4f} ms "
+            f"({per_round['library']:.3f} us a round), bound {bound_ms:.2e} "
+            f"ms ({bound_by}); card {smi}")
         out.append(rec)
     return out
 
@@ -639,6 +652,67 @@ def phase_qft(dev, n, runs=3):
     return err, counts
 
 
+def device_busy(prof, wall_s):
+    """From a torch.profiler trace: (K2's device ms, K2 launches, all device
+    ms, busy share of ``wall_s``), or None where the trace holds no device
+    activity. The busy share is the union of the device intervals over the
+    host's wall time of the traced call."""
+    from torch.autograd import DeviceType
+
+    spans, k2_us, k2_n = [], 0.0, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        if "jacobi_eigh_kernel" in e.name:
+            k2_us += t1 - t0
+            k2_n += 1
+    if not spans:
+        return None
+    spans.sort()
+    busy, end = 0.0, -math.inf
+    for t0, t1 in spans:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    total = sum(t1 - t0 for t0, t1 in spans)
+    return k2_us / 1e3, k2_n, total / 1e3, busy / 1e6 / wall_s
+
+
+def phase_trace(dev, n=QFT_BITS):
+    """One QFT build and one apply at n under torch.profiler; logs where
+    the device time goes (see the module docstring)."""
+    import qilaplace_tpu_torch as qt
+    from torch.profiler import ProfilerActivity, profile
+
+    x = qt.generate_signal(n, device=dev)
+    psi = qt.QFTPipeline(n, chi=QFT_CHI, cutoff=QFT_CUTOFF,
+                         device=dev).encode(x, **QFT_ENCODE)
+    del x
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    stages = {}
+    with profile(activities=acts) as prof:
+        pipe, stages["build"] = synced(lambda: qt.QFTPipeline(
+            n, chi=QFT_CHI, cutoff=QFT_CUTOFF, device=dev))
+    res = {"build": device_busy(prof, stages["build"])}
+    with profile(activities=acts) as prof:
+        _, stages["apply"] = synced(lambda: pipe.forward(psi))
+    res["apply"] = device_busy(prof, stages["apply"])
+    for stage, r in res.items():
+        if r is None:
+            log(f"[trace] n={n} {stage}: wall {stages[stage]:.4f} s under "
+                "the profiler; no device activity in the trace (not measured)")
+            continue
+        k2_ms, k2_n, dev_ms, busy = r
+        log(f"[trace] n={n} {stage}: wall {stages[stage]:.4f} s under the "
+            f"profiler; K2 {k2_ms:.2f} ms device time in {k2_n} launches "
+            f"({k2_ms / max(k2_n, 1) * 1e3:.1f} us each, "
+            f"{k2_ms / 10 / stages[stage]:.1f} % of the wall time); all "
+            f"kernels {dev_ms:.2f} ms; card busy {100 * busy:.1f} % of the "
+            f"wall time")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -669,6 +743,7 @@ def main():
         dev, set(qft_counts["k2_by_shape"]) | set(qft16_counts["k2_by_shape"])))
     k1 = phase_timing(chain, configs, smi)
     k2_times = phase_k2_timing(smi)
+    phase_trace(dev)
     # K2's line: its most launched shape on the QFT path (the build's
     # two-site polish, m = 24); every shape's numbers are logged above
     k2 = k2_times[0]

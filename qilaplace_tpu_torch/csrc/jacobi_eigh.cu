@@ -1,83 +1,165 @@
 // Batched Hermitian eigensolver by parallel-order cyclic Jacobi (kernel K2).
 //
-// Replaces the Pallas TPU kernel qilaplace_tpu/ops/jacobi.py::_jacobi_kernel
-// (called by jacobi_eigh_pallas). For each of B Hermitian matrices H [m, m]
-// (complex64 as interleaved float2; a real input arrives with zero imaginary
-// part and leaves with a real V), m even, 2 <= m <= 512: sweeps * (m - 1)
-// Brent-Luk rounds, each applying m/2 independent 2x2 rotations
-//   J_i = [[c, -z], [conj(z), c]],  z = s u,  u = w / |w|,  w = G[p_i, q_i],
-// with (c, s) from tau = (G[p,p] - G[q,q]) / (2 |w|) as in the plain version
-// (ops/jacobi.py), as G <- J^H G J and V <- V J. Output: the eigenvalues
-// ascending and V with its columns in the same order.
+// Replaces the Pallas TPU kernel qilaplace_tpu/ops/jacobi.py:302
+// (_jacobi_kernel, launched by jacobi_eigh_pallas at :420). For each of B
+// Hermitian matrices H [m, m], complex64 (interleaved float2) or real float32,
+// m even, 2 <= m <= 512: sweeps * (m - 1) Brent-Luk rounds, each applying m/2
+// independent 2x2 rotations
+//   J_i = [[c, -z], [conj(z), c]],  z = w t c / |w|,  w = G[2i, 2i+1],
+// with t from tau = (G[2i,2i] - G[2i+1,2i+1]) / (2 |w|) as in the plain version
+// (ops/jacobi.py, _pair_rotations: the tie tau >= 0 takes t = +1, a pair with
+// w = 0 gets the identity), as G <- J^H G J and V <- V J. Output: the
+// eigenvalues ascending and V with its columns in the same order.
 //
-// What bounds it on an H100: one round is O(m^2) work (about 40 m^2 fp32
-// flops), but the rounds are a dependent chain: sweeps * (m - 1) of them, two
-// block barriers each, on the one SM that holds the matrix. At m = 80 with 6
-// sweeps that is 474 rounds and ~1.5e8 flops, ~2 us at the card's 67 TFLOP/s
-// fp32, while the chain of barriers and shared-memory round trips takes some
-// hundred times that. So latency on one of 132 SMs bounds it at B = 1; a batch
-// fills more SMs (one block per matrix). Batching sibling solves and graph
-// capture are later work.
+// What bounds it on an H100: a round is O(m^2) work (30 m^2 flops complex,
+// 9 m^2 real), but the rounds form a dependent chain on the one SM that holds
+// the matrix: 115 / 234 / 474 rounds at the QFT path's m = 24 / 40 / 80, at
+// B = 1. A round's latency bounds the kernel, hundreds of times above its
+// flop bound: the chain of sqrt and division that makes a rotation, the
+// shared-memory traffic of the O(m^2) update (at m = 80 about 200 KB a round
+// through the SM's 128 bytes a cycle) and the barrier. A batch fills more SMs
+// (one block per matrix).
 //
-// Design, kept simple and exact first:
-//  * no TPU carry-over: the TPU kernel built each round's rotation as a dense
-//    m x m matrix, folded the tournament permutation into it and spent ~14
-//    MXU matmuls (O(m^3)) per round. Here the m/2 rotations are applied
-//    directly: thread t owns one 2x2 block (I, K) of G and applies J_I^H on
-//    the left and J_K on the right; V's column pairs are updated likewise. No
-//    two threads touch the same entry, so each phase needs no atomics;
-//  * each pair's (c, z) is computed once, by one thread, from G's diagonal and
-//    the coupling G[p, q], so the partner disagreement the TPU kernel
-//    symmetrizes away cannot arise. The TPU kernel's tau == 0 parity
-//    tie-break gave the pair the even member's sign, +1; that is the plain
-//    version's tau >= 0 rule used here;
-//  * the tournament permutation is an index map, not data movement: G and V
-//    stay in original index order, and round r pairs the elements
-//    (L_r[i], L_r[m-1-i]) of the round-robin list L_r[0] = 0,
-//    L_r[j] = pi_inv(1 + ((j - 1 - r) mod (m - 1))), which is exactly the
-//    plain version's position arrangement. A final rank sort orders (lam, v);
-//  * c = 1 / sqrtf(1 + t^2) and sqrtf / division as the compiler gives them
-//    without fast math (IEEE), so no Newton steps are needed;
-//  * G and V (16 m^2 bytes) plus the round's parameters live in dynamic
-//    shared memory up to m = 120 (230,400 + 1,200 bytes of the 232,448 a block
-//    may opt in to); above that the same code runs on G and V in device memory
-//    (4 MiB at m = 512, L2-resident), with only the parameters in shared.
+// Design against that latency:
+//  * pair-adjacent positions, as the plain version keeps them: pair i sits at
+//    positions (2i, 2i+1) in every round, and the round writes its output at
+//    the next round's positions, p -> dst[p] (the inverse of the tournament
+//    permutation sigma; the wrapper hands the table over, m ints), into a
+//    second buffer: G_{r+1}[dst[a], dst[b]] = (J^H G_r J)[a, b] and
+//    V_{r+1}[:, dst[b]] = (V_r J)[:, b]. After every full sweep the positions
+//    are the indices again;
+//  * columns are stored even positions first, then odd (position p at column
+//    slot p/2 + (p%2) c, c = m/2). A pair's two columns are then two slots c
+//    apart, neighbouring pairs neighbouring slots, and the tournament's moves
+//    (2K -> 2K+2, 2K+1 -> 2K-1 inside the list) become shifts by one slot, so
+//    a warp's loads and stores are each one dense run: no bank conflicts;
+//  * one barrier a round: G and V are double-buffered, and the round also
+//    makes the NEXT round's rotations: warps of their own, one thread a
+//    pair, rebuild the pair's next diagonal block from G_r and this round's
+//    rotations (three entries of J^H G_r J, by the same arithmetic as the
+//    update) and run the rotation's chain of sqrt and division while the
+//    other warps update G and V. The one __syncthreads at the end of the
+//    round publishes G_{r+1}, V_{r+1} and the rotations together (a
+//    double-buffered table);
+//  * no division in the round: thread (K, y) (tid = y c + K) owns column pair
+//    K and row pairs y, y + Y, ...; its destinations are computed once. Up to
+//    1,024 threads: m = 80 is 40 x 20 threads, two row pairs each, and two
+//    warps of rotation makers;
+//  * a real variant (the template's element type): float32 input stays real,
+//    9 m^2 flops a round and half the shared memory;
+//  * the same numbers as the plain version: the rotation with IEEE sqrtf and
+//    division (no fast math), each product and sum rounded as
+//    _pair_rotations rounds it, and each entry of J^H G J and V J summed as
+//    the plain version's matrix products sum it (k ascending: the first
+//    nonzero term rounded, the second fused onto it). On the card the kernel
+//    then reproduces its plain version bit for bit;
+//  * the double-buffered G and V (32 m^2 bytes complex) live in dynamic
+//    shared memory up to m = SMEM_MAX_M = 84 (225,792 of the 232,448 bytes a
+//    block may opt in to, plus 2,352 bytes of tables); above, the same code
+//    runs on buffers in device memory (scratch from the wrapper; 8 MiB at
+//    m = 512, L2-resident).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int MAX_M = 512;
-constexpr int SMEM_MAX_M = 120;  // largest m whose G and V fit in shared
-constexpr int MAX_THREADS = 512;
+constexpr int SMEM_MAX_M = 84;  // largest m whose G and V buffers fit in shared
+constexpr int MAX_THREADS = 1024;
 constexpr int MAX_DEVICES = 64;
 
-// dynamic shared memory of one block: G and V while m <= SMEM_MAX_M, plus
-// the round's parameters (z, c and the pair's two members per pair)
-constexpr size_t smem_bytes(int m) {
-  return (m <= SMEM_MAX_M ? 2 * (size_t)m * m * sizeof(float2) : 0) +
-         (size_t)(m / 2) * (sizeof(float2) + sizeof(float) + 2 * sizeof(int));
+// Element types. left(): rows (p, q) of J^H G in one column; right():
+// columns (0, 1) of X J in one row. Each entry is summed as the plain
+// version's matrix products sum it: over k ascending, the first nonzero
+// term rounded, the second fused onto it.
+
+// complex64: one element is a float2
+struct C64 {
+  using T = float2;
+  static __device__ __forceinline__ float re(T a) { return a.x; }
+  static __device__ __forceinline__ float absval(T w) { return hypotf(w.x, w.y); }
+  static __device__ __forceinline__ T scale(float s, T a) {
+    return make_float2(s * a.x, s * a.y);
+  }
+  static __device__ __forceinline__ T eye(bool diag) {
+    return make_float2(diag ? 1.f : 0.f, 0.f);
+  }
+  static __device__ __forceinline__ void left(float c, T z, T gp, T gq, T& xp, T& xq) {
+    xp = make_float2(fmaf(-z.y, gq.y, fmaf(z.x, gq.x, __fmul_rn(c, gp.x))),
+                     fmaf(z.y, gq.x, fmaf(z.x, gq.y, __fmul_rn(c, gp.y))));
+    xq = make_float2(fmaf(c, gq.x, fmaf(-z.y, gp.y, __fmul_rn(-z.x, gp.x))),
+                     fmaf(c, gq.y, fmaf(z.y, gp.x, __fmul_rn(-z.x, gp.y))));
+  }
+  static __device__ __forceinline__ void right(float c, T z, T x0, T x1, T& y0, T& y1) {
+    y0 = make_float2(fmaf(-x1.y, -z.y, fmaf(x1.x, z.x, __fmul_rn(x0.x, c))),
+                     fmaf(x1.y, z.x, fmaf(x1.x, -z.y, __fmul_rn(x0.y, c))));
+    y1 = make_float2(fmaf(x1.x, c, fmaf(-x0.y, -z.y, __fmul_rn(x0.x, -z.x))),
+                     fmaf(x1.y, c, fmaf(x0.y, -z.x, __fmul_rn(x0.x, -z.y))));
+  }
+};
+
+// float32: the real variant
+struct F32 {
+  using T = float;
+  static __device__ __forceinline__ float re(T a) { return a; }
+  static __device__ __forceinline__ float absval(T w) { return fabsf(w); }
+  static __device__ __forceinline__ T scale(float s, T a) { return s * a; }
+  static __device__ __forceinline__ T eye(bool diag) { return diag ? 1.f : 0.f; }
+  static __device__ __forceinline__ void left(float c, T z, T gp, T gq, T& xp, T& xq) {
+    xp = fmaf(z, gq, __fmul_rn(c, gp));
+    xq = fmaf(c, gq, __fmul_rn(-z, gp));
+  }
+  static __device__ __forceinline__ void right(float c, T z, T x0, T x1, T& y0, T& y1) {
+    y0 = fmaf(x1, z, __fmul_rn(x0, c));
+    y1 = fmaf(x1, c, __fmul_rn(x0, -z));
+  }
+};
+
+template <typename E>
+struct alignas(2 * sizeof(typename E::T)) Rot {
+  float c;
+  typename E::T z;
+};
+
+// column slot of position p: even positions first, then odd
+__device__ __forceinline__ int slot(int p, int c) { return (p >> 1) + (p & 1) * c; }
+
+// the rotation of a pair with diagonal (a, d) and coupling w, as
+// _pair_rotations computes it
+template <typename E>
+__device__ __forceinline__ Rot<E> rotation(float a, float d, typename E::T w) {
+  const float absw = E::absval(w);
+  Rot<E> r;
+  if (absw > 0.f) {
+    const float tau = __fdiv_rn(__fsub_rn(a, d), __fmul_rn(2.f, absw));
+    const float sgn = tau >= 0.f ? 1.f : -1.f;
+    const float t = __fdiv_rn(
+        sgn, __fadd_rn(fabsf(tau), __fsqrt_rn(__fadd_rn(1.f, __fmul_rn(tau, tau)))));
+    r.c = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(1.f, __fmul_rn(t, t))));
+    r.z = E::scale(__fdiv_rn(__fmul_rn(t, r.c), absw), w);
+  } else {
+    r.c = 1.f;
+    r.z = E::eye(false);
+  }
+  return r;
 }
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-__device__ __forceinline__ float2 cscale(float s, float2 a) {
-  return make_float2(s * a.x, s * a.y);
-}
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 conjf2(float2 a) {
-  return make_float2(a.x, -a.y);
-}
-
-// element held at round-robin list slot j in round r (0 <= r < m - 1)
-__device__ __forceinline__ int slot_element(int j, int r, int m) {
-  const int c = m / 2;
-  int k = 0;
-  if (j > 0) k = 1 + (((j - 1 - r) % (m - 1)) + (m - 1)) % (m - 1);
-  return k < c ? 2 * k : 2 * (m - 1 - k) + 1;
+// entry (s, t) of J_P^H G[pair P, pair Q] J_Q: what the update writes for it
+template <typename E>
+__device__ __forceinline__ typename E::T entry(const typename E::T* G, int P, int Q, int s,
+                                               int t, const Rot<E>& rP, const Rot<E>& rQ,
+                                               int m, int c) {
+  using T = typename E::T;
+  const T* g = G + 2 * P * m + Q;
+  T x00, x10, x01, x11, y0, y1;
+  E::left(rP.c, rP.z, g[0], g[m], x00, x10);
+  E::left(rP.c, rP.z, g[c], g[m + c], x01, x11);
+  if (s) {
+    E::right(rQ.c, rQ.z, x10, x11, y0, y1);
+  } else {
+    E::right(rQ.c, rQ.z, x00, x01, y0, y1);
+  }
+  return t ? y1 : y0;
 }
 
 // strict total order for the final sort: ascending, NaN last, ties by index
@@ -87,161 +169,193 @@ __device__ __forceinline__ bool before(float x, int i, float y, int j) {
   return x < y || (x == y && i < j);
 }
 
+template <typename E, bool IN_SMEM>
 __global__ void __launch_bounds__(MAX_THREADS)
-jacobi_eigh_kernel(const float2* __restrict__ h_in, float* __restrict__ lam_out,
-                   float2* __restrict__ v_out, float2* g_work, float2* v_work,
-                   int m, int sweeps) {
+jacobi_eigh_kernel(const typename E::T* __restrict__ h_in, float* __restrict__ lam_out,
+                   typename E::T* __restrict__ v_out, typename E::T* work,
+                   const int* __restrict__ dst_in, int m, int Y, int sweeps) {
+  using T = typename E::T;
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = m / 2;
-  const size_t mm = (size_t)m * m;
+  const int mm = m * m;
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
+  // once per launch: thread (K, y) owns column pair K and row pairs
+  // y, y + Y, ..., J of them; threads with y >= Y pad the last such warp.
+  // The warps after those (threads from `makers` on) make the rotations.
+  const int K = tid % c;
+  const int y = tid / c;
+  const int J = (c + Y - 1) / Y;
+  const bool owner = y < Y;
+  const int makers = (c * Y + 31) / 32 * 32;
 
-  float2* G;
-  float2* V;
-  unsigned char* tail;
-  if (m <= SMEM_MAX_M) {
-    G = reinterpret_cast<float2*>(smem);
-    V = G + mm;
-    tail = reinterpret_cast<unsigned char*>(V + mm);
-  } else {
-    G = g_work + b * mm;
-    V = v_work + b * mm;
-    tail = smem;
+  T* G0 = IN_SMEM ? reinterpret_cast<T*>(smem) : work + b * 4 * mm;
+  Rot<E>* R = reinterpret_cast<Rot<E>*>(IN_SMEM ? smem + 4 * mm * sizeof(T) : smem);
+  int* dst = reinterpret_cast<int*>(R + 2 * c);
+  int* src = dst + m;
+  int* perm = src + m;
+  T* Gc = G0;          // G_r
+  T* Gn = G0 + mm;     // G_{r+1}
+  T* Vc = G0 + 2 * mm; // V_r
+  T* Vn = G0 + 3 * mm; // V_{r+1}
+
+  const T* H = h_in + b * mm;
+  for (int j = tid; j < m; j += nthr) dst[j] = dst_in[j];
+  if (owner) {
+    for (int row = y; row < m; row += Y) {
+      for (int col = K; col < m; col += c) {
+        Gc[row * m + slot(col, c)] = H[row * m + col];
+        Vc[row * m + slot(col, c)] = E::eye(row == col);
+      }
+    }
   }
-  float2* rz = reinterpret_cast<float2*>(tail);  // [c] z = s u
-  float* rc = reinterpret_cast<float*>(rz + c);  // [c] c
-  int* rp = reinterpret_cast<int*>(rc + c);      // [c] even member
-  int* rq = rp + c;                              // [c] odd member
-
-  const float2* H = h_in + b * mm;
-  for (size_t idx = tid; idx < mm; idx += nthr) {
-    G[idx] = H[idx];
-    V[idx] = make_float2(idx / m == idx % m ? 1.f : 0.f, 0.f);
+  __syncthreads();
+  for (int j = tid; j < m; j += nthr) src[dst[j]] = j;
+  for (int j = tid; j < c; j += nthr) {
+    R[j] = rotation<E>(E::re(Gc[2 * j * m + j]), E::re(Gc[(2 * j + 1) * m + c + j]),
+                       Gc[2 * j * m + c + j]);
   }
   __syncthreads();
 
+  // this thread's destination column slots
+  const int sK0 = slot(dst[2 * K], c), sK1 = slot(dst[2 * K + 1], c);
+  // maker i rebuilds pair i's next diagonal block, whose positions
+  // (2i, 2i + 1) hold this round's positions a and bb
+  const int i = tid - makers;
+  const bool maker = i >= 0 && i < c;
+  const int a = maker ? src[2 * i] : 0, bb = maker ? src[2 * i + 1] : 1;
+  const int A = a >> 1, sa = a & 1, B = bb >> 1, sb = bb & 1;
+
   const int rounds = sweeps * (m - 1);
-  const int nblk = c * c;
-  const int work = nblk + m * c;
   for (int r = 0; r < rounds; ++r) {
-    const int rr = r % (m - 1);
-    // phase 1: one rotation per pair, from the diagonal and the coupling
-    for (int i = tid; i < c; i += nthr) {
-      const int p = slot_element(i, rr, m);
-      const int q = slot_element(m - 1 - i, rr, m);
-      const float a = G[(size_t)p * m + p].x;
-      const float d = G[(size_t)q * m + q].x;
-      const float2 w = G[(size_t)p * m + q];
-      const float absw = hypotf(w.x, w.y);
-      float cs = 1.f;
-      float2 z = make_float2(0.f, 0.f);
-      if (absw > 0.f) {
-        const float tau = (a - d) / (2.f * absw);
-        const float sgn = tau >= 0.f ? 1.f : -1.f;
-        const float t = sgn / (fabsf(tau) + sqrtf(1.f + tau * tau));
-        cs = 1.f / sqrtf(1.f + t * t);
-        const float s = t * cs;
-        z = make_float2(s * (w.x / absw), s * (w.y / absw));
-      }
-      rp[i] = p;
-      rq[i] = q;
-      rc[i] = cs;
-      rz[i] = z;
+    const Rot<E>* Rc = R + (r & 1) * c;
+    if (maker && r + 1 < rounds) {
+      const Rot<E> rA = Rc[A], rB = Rc[B];
+      const float d0 = E::re(entry<E>(Gc, A, A, sa, sa, rA, rA, m, c));
+      const float d1 = E::re(entry<E>(Gc, B, B, sb, sb, rB, rB, m, c));
+      const T w = entry<E>(Gc, A, B, sa, sb, rA, rB, m, c);
+      R[((r + 1) & 1) * c + i] = rotation<E>(d0, d1, w);
     }
-    __syncthreads();
-    // phase 2: G <- J^H G J by 2x2 blocks (I, K); V <- V J by (row, pair)
-    for (int idx = tid; idx < work; idx += nthr) {
-      if (idx < nblk) {
-        const int I = idx / c, K = idx % c;
-        const int pI = rp[I], qI = rq[I], pK = rp[K], qK = rq[K];
-        const float cI = rc[I], cK = rc[K];
-        const float2 zI = rz[I], zK = rz[K];
-        float2* Gp = G + (size_t)pI * m;
-        float2* Gq = G + (size_t)qI * m;
-        const float2 gpp = Gp[pK], gpq = Gp[qK], gqp = Gq[pK], gqq = Gq[qK];
-        // left: X = J_I^H G (rows p, q)
-        const float2 nczI = make_float2(-zI.x, zI.y);  // -conj(z_I)
-        const float2 xpp = cadd(cscale(cI, gpp), cmul(zI, gqp));
-        const float2 xpq = cadd(cscale(cI, gpq), cmul(zI, gqq));
-        const float2 xqp = cadd(cscale(cI, gqp), cmul(nczI, gpp));
-        const float2 xqq = cadd(cscale(cI, gqq), cmul(nczI, gpq));
-        // right: Y = X J_K (columns p, q)
-        const float2 czK = conjf2(zK);
-        const float2 nzK = make_float2(-zK.x, -zK.y);
-        Gp[pK] = cadd(cscale(cK, xpp), cmul(xpq, czK));
-        Gp[qK] = cadd(cmul(xpp, nzK), cscale(cK, xpq));
-        Gq[pK] = cadd(cscale(cK, xqp), cmul(xqq, czK));
-        Gq[qK] = cadd(cmul(xqp, nzK), cscale(cK, xqq));
-      } else {
-        const int t = idx - nblk;
-        const int row = t / c, K = t % c;
-        const int pK = rp[K], qK = rq[K];
-        const float cK = rc[K];
-        const float2 zK = rz[K];
-        float2* Vr = V + (size_t)row * m;
-        const float2 vp = Vr[pK], vq = Vr[qK];
-        Vr[pK] = cadd(cscale(cK, vp), cmul(vq, conjf2(zK)));
-        Vr[qK] = cadd(cmul(vp, make_float2(-zK.x, -zK.y)), cscale(cK, vq));
+    if (owner) {
+      const Rot<E> rk = Rc[K];
+      for (int j = 0; j < J; ++j) {
+        const int I = y + j * Y;
+        if (I >= c) break;
+        const Rot<E> ri = Rc[I];
+        const int p = 2 * I, q = p + 1;
+        const int2 dI = *reinterpret_cast<const int2*>(dst + p);
+        T x0, x1, y0, y1, xq0, xq1;
+        // G: rows p, q of J_I^H G in columns 2K, 2K+1, then times J_K
+        E::left(ri.c, ri.z, Gc[p * m + K], Gc[q * m + K], x0, xq0);
+        E::left(ri.c, ri.z, Gc[p * m + c + K], Gc[q * m + c + K], x1, xq1);
+        E::right(rk.c, rk.z, x0, x1, y0, y1);
+        Gn[dI.x * m + sK0] = y0;
+        Gn[dI.x * m + sK1] = y1;
+        E::right(rk.c, rk.z, xq0, xq1, y0, y1);
+        Gn[dI.y * m + sK0] = y0;
+        Gn[dI.y * m + sK1] = y1;
+        // V: rows p, q times J_K (V's rows never move)
+        E::right(rk.c, rk.z, Vc[p * m + K], Vc[p * m + c + K], y0, y1);
+        Vn[p * m + sK0] = y0;
+        Vn[p * m + sK1] = y1;
+        E::right(rk.c, rk.z, Vc[q * m + K], Vc[q * m + c + K], y0, y1);
+        Vn[q * m + sK0] = y0;
+        Vn[q * m + sK1] = y1;
       }
     }
+    T* t = Gc; Gc = Gn; Gn = t;
+    t = Vc; Vc = Vn; Vn = t;
     __syncthreads();
   }
 
   // eigenvalues ascending: rank each diagonal entry, then gather V's columns
-  int* perm = rp;  // rp and rq together hold m ints
   for (int j = tid; j < m; j += nthr) {
-    const float lj = G[(size_t)j * m + j].x;
+    const float lj = E::re(Gc[j * m + slot(j, c)]);
     int rank = 0;
-    for (int k = 0; k < m; ++k) rank += before(G[(size_t)k * m + k].x, k, lj, j);
+    for (int k = 0; k < m; ++k) rank += before(E::re(Gc[k * m + slot(k, c)]), k, lj, j);
     perm[rank] = j;
     lam_out[b * m + rank] = lj;
   }
   __syncthreads();
-  float2* Vo = v_out + b * mm;
-  for (size_t idx = tid; idx < mm; idx += nthr) {
-    Vo[idx] = V[(idx / m) * m + perm[idx % m]];
+  T* Vo = v_out + b * mm;
+  if (owner) {
+    for (int row = y; row < m; row += Y) {
+      for (int col = K; col < m; col += c) {
+        Vo[row * m + col] = Vc[row * m + slot(perm[col], c)];
+      }
+    }
   }
+}
+
+// launch geometry: the fewest row pairs a thread (J) such that c columns of
+// Y = ceil(c / J) threads, rounded up to whole warps, and the c rotation
+// makers, in whole warps, fit in one block
+void row_pairs(int c, int* Y, int* threads) {
+  const int makers = (c + 31) / 32 * 32;
+  for (int J = (c * c + MAX_THREADS - 1) / MAX_THREADS;; ++J) {
+    *Y = (c + J - 1) / J;
+    *threads = (c * *Y + 31) / 32 * 32 + makers;
+    if (*threads <= MAX_THREADS) return;
+  }
+}
+
+// dynamic shared memory: G and V (double-buffered) while m <= SMEM_MAX_M,
+// the rotations of two rounds, and dst, src and the final order (m ints each)
+template <typename E>
+constexpr size_t smem_bytes(int m) {
+  return (m <= SMEM_MAX_M ? 4 * (size_t)m * m * sizeof(typename E::T) : 0) +
+         (size_t)m * sizeof(Rot<E>) + 3 * (size_t)m * sizeof(int);
+}
+
+template <typename E>
+int launch(const void* h, void* lam, void* v, void* work, const int* dst, int batch,
+           int m, int sweeps, int dev, cudaStream_t stream) {
+  // opt in, once per device, to the most dynamic shared memory any m needs
+  static bool opted_in[MAX_DEVICES] = {};
+  if (!opted_in[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jacobi_eigh_kernel<E, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<E>(SMEM_MAX_M));
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev] = true;
+  }
+  using T = typename E::T;
+  const int c = m / 2;
+  int rows = 0, threads = 0;
+  row_pairs(c, &rows, &threads);
+  const auto kernel = m <= SMEM_MAX_M ? jacobi_eigh_kernel<E, true>
+                                     : jacobi_eigh_kernel<E, false>;
+  kernel<<<batch, threads, smem_bytes<E>(m), stream>>>(
+      static_cast<const T*>(h), static_cast<float*>(lam), static_cast<T*>(v),
+      static_cast<T*>(work), dst, m, rows, sweeps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// h [B, m, m] complex64 Hermitian, lam [B, m] float32, v [B, m, m] complex64;
-// for m > 120, g_work and v_work are [B, m, m] complex64 scratch (else unused,
-// may be null). All on the device; launches on `stream` and returns
+// h [B, m, m] Hermitian, complex64 (is_complex = 1) or float32; lam [B, m]
+// float32; v [B, m, m] of h's type; dst [m] int32, the position moves of one
+// round; for m > 84, work is [B, 4, m, m] of h's type (else unused, may be
+// null). All on device `device`; launches on `stream` and returns
 // cudaGetLastError() (0 on success).
-extern "C" int qlt_jacobi_eigh(const void* h, void* lam, void* v, void* g_work,
-                               void* v_work, int batch, int m, int sweeps,
-                               void* stream) {
-  if (batch <= 0 || m < 2 || m > MAX_M || m % 2 != 0 || sweeps < 0) {
+extern "C" int qlt_jacobi_eigh(const void* h, void* lam, void* v, void* work,
+                               const void* dst, int is_complex, int batch, int m,
+                               int sweeps, int device, void* stream) {
+  if (batch <= 0 || m < 2 || m > MAX_M || m % 2 != 0 || sweeps < 0 ||
+      dst == nullptr || device < 0 || device >= MAX_DEVICES) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool in_smem = m <= SMEM_MAX_M;
-  if (!in_smem && (g_work == nullptr || v_work == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // opt in, once per device, to the most dynamic shared memory any m needs
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  if (m > SMEM_MAX_M && work == nullptr) return (int)cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return (int)err;
-  static bool opted_in[MAX_DEVICES] = {};
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(jacobi_eigh_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes(SMEM_MAX_M));
-    if (err != cudaSuccess) return (int)err;
-    opted_in[dev] = true;
-  }
-  const int c = m / 2;
-  const size_t smem = smem_bytes(m);
-  const int work = c * c + m * c;
-  int threads = ((work + 31) / 32) * 32;
-  if (threads > MAX_THREADS) threads = MAX_THREADS;
-  jacobi_eigh_kernel<<<batch, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float2*>(h), static_cast<float*>(lam),
-      static_cast<float2*>(v), static_cast<float2*>(g_work),
-      static_cast<float2*>(v_work), m, sweeps);
-  return (int)cudaGetLastError();
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  const int* d = static_cast<const int*>(dst);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int out = is_complex
+                      ? launch<C64>(h, lam, v, work, d, batch, m, sweeps, device, s)
+                      : launch<F32>(h, lam, v, work, d, batch, m, sweeps, device, s);
+  if (prev != device) cudaSetDevice(prev);
+  return out;
 }

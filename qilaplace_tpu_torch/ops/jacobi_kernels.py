@@ -1,15 +1,28 @@
 """Kernel K2: batched Hermitian Jacobi eigensolver, hand-written for Hopper.
 
-Counterpart of ``jacobi_eigh_pallas`` in ``qilaplace_tpu/ops/jacobi.py``.
-The CUDA C++ source is ``qilaplace_tpu_torch/csrc/jacobi_eigh.cu``; its
-header says what bounds the kernel on the card and how the design answers
-that.
+Replaces the TPU kernel ``_jacobi_kernel`` (``qilaplace_tpu/ops/jacobi.py:
+302``, launched by ``jacobi_eigh_pallas`` at ``:420``). The CUDA C++ source
+is ``qilaplace_tpu_torch/csrc/jacobi_eigh.cu``. What bounds it on the card
+is the chain of sweeps * (m - 1) dependent rounds at B = 1, on the one SM
+that holds the matrix, so the design cuts the latency of a round:
+
+- pair-adjacent layout, as the plain version keeps it: pair i sits at
+  positions (2i, 2i+1), a 2x2 block of G is one 16-byte load a row, and
+  each round writes its output at the next round's positions
+  (:func:`position_moves`, handed to the kernel as a table of m ints and
+  cached on the device per m) in a second buffer;
+- one block barrier a round: G and V are double-buffered, and each thread
+  computes the two rotations it needs from the diagonal blocks itself;
+- no division in the round: the 2-D thread index maps threads to blocks;
+  up to 1,024 threads a block;
+- a real variant: float32 input stays float32 (9 m^2 flops a round, half
+  the shared memory) and V comes back real.
 
 :func:`jacobi_eigh_k2` is the wrapper. A matrix on the CPU goes to the plain
 torch version (:func:`jacobi_eigh_k2_reference`, the solver of
 ops/jacobi.py with the same sweeps); a matrix on a CUDA device goes to the
 kernel, built with ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/`` (ops/kernel_build.py) and bound through ``ctypes``.
+``build/kernels/`` (ops/kernel_build.py) and bound through ``ctypes`` once.
 Anything the kernel does not take raises; nothing falls back. Importing
 this module builds nothing.
 """
@@ -18,15 +31,21 @@ from __future__ import annotations
 
 import collections
 import ctypes
+from functools import lru_cache
 
+import numpy as np
 import torch
 
-from qilaplace_tpu_torch.ops.jacobi import default_sweeps, jacobi_eigh
+from qilaplace_tpu_torch.ops.jacobi import (
+    _tournament_sigma,
+    default_sweeps,
+    jacobi_eigh,
+)
 from qilaplace_tpu_torch.ops.kernel_build import load_kernel
 
 SOURCE = "jacobi_eigh.cu"
-MAX_M = 512       # must match MAX_M in the CUDA source
-SMEM_MAX_M = 120  # must match SMEM_MAX_M: larger m keeps G, V in device memory
+MAX_M = 512      # must match MAX_M in the CUDA source
+SMEM_MAX_M = 84  # must match SMEM_MAX_M: larger m keeps G, V in device memory
 
 
 def jacobi_eigh_k2_reference(H: torch.Tensor, *, sweeps: int | None = None):
@@ -73,9 +92,24 @@ def figures(H: torch.Tensor, lam: torch.Tensor, V: torch.Tensor) -> dict:
             "eigh64": float((lam64 - ref).abs().max()) / scale}
 
 
+@lru_cache(maxsize=None)
+def position_moves(m: int) -> tuple:
+    """The kernel's table for one round: position p's entries move to
+    position ``dst[p]`` for the next round (the inverse of the tournament
+    permutation ``sigma``, since ``arrangement_next[p] =
+    arrangement[sigma[p]]``). The same table serves every round."""
+    return tuple(int(d) for d in np.argsort(_tournament_sigma(m)))
+
+
+@lru_cache(maxsize=None)
+def _dst_table(m: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(position_moves(m), dtype=torch.int32, device=device)
+
+
+@lru_cache(maxsize=None)
 def _kernel():
     fn = load_kernel(SOURCE).qlt_jacobi_eigh
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -87,9 +121,10 @@ def jacobi_eigh_k2(H: torch.Tensor, *, sweeps: int | None = None):
 
     CPU matrix: the plain torch version, any dtype and m. CUDA matrix: the
     kernel, which takes float32 or complex64 with m even, 2 <= m <= 512;
-    it returns float32 eigenvalues and V of the input's dtype (real for a
-    real input). Every launch adds one to ``jacobi_eigh_k2.launches`` and
-    to ``jacobi_eigh_k2.by_shape[(m, B, "c64" or "f32", sweeps)]``."""
+    it returns float32 eigenvalues and V of the input's dtype (a float32
+    input runs the real variant). Every launch adds one to
+    ``jacobi_eigh_k2.launches`` and to
+    ``jacobi_eigh_k2.by_shape[(m, B, "c64" or "f32", sweeps)]``."""
     if H.device.type == "cpu":
         return jacobi_eigh_k2_reference(H, sweeps=sweeps)
     if H.device.type != "cuda":
@@ -106,26 +141,23 @@ def jacobi_eigh_k2(H: torch.Tensor, *, sweeps: int | None = None):
     if sweeps < 0:
         raise ValueError("K2: sweeps must be >= 0")
     squeeze = H.dim() == 2
-    Hc = H.reshape(-1, m, m).to(torch.complex64).contiguous()
+    Hc = H.reshape(-1, m, m).contiguous()
     B = Hc.shape[0]
     lam = torch.empty(B, m, dtype=torch.float32, device=H.device)
-    V = torch.empty(B, m, m, dtype=torch.complex64, device=H.device)
+    V = torch.empty_like(Hc)
     if B:
-        work = ((torch.empty_like(Hc), torch.empty_like(Hc))
-                if m > SMEM_MAX_M else (None, None))
-        fn = _kernel()
-        with torch.cuda.device(H.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(Hc.data_ptr(), lam.data_ptr(), V.data_ptr(),
-                     *(0 if w is None else w.data_ptr() for w in work),
-                     B, m, sweeps, stream)
+        work = (torch.empty(B, 4, m, m, dtype=H.dtype, device=H.device)
+                if m > SMEM_MAX_M else None)
+        cplx = H.is_complex()
+        err = _kernel()(
+            Hc.data_ptr(), lam.data_ptr(), V.data_ptr(),
+            0 if work is None else work.data_ptr(),
+            _dst_table(m, H.device).data_ptr(), int(cplx), B, m, sweeps,
+            H.device.index, torch.cuda.current_stream(H.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"K2 launch failed: CUDA error {err}")
         jacobi_eigh_k2.launches += 1
-        kind = "c64" if H.is_complex() else "f32"
-        jacobi_eigh_k2.by_shape[(m, B, kind, sweeps)] += 1
-    if not H.is_complex():
-        V = V.real.contiguous()
+        jacobi_eigh_k2.by_shape[(m, B, "c64" if cplx else "f32", sweeps)] += 1
     if squeeze:
         return lam[0], V[0]
     return lam, V

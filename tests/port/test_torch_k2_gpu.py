@@ -106,6 +106,21 @@ def test_k2_zero_padded(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 24, 56, jk.SMEM_MAX_M, jk.SMEM_MAX_M + 2, 256])
+def test_k2_real_variant(cuda_device, m):
+    # float32 stays float32 through the kernel: the launch is counted as a
+    # real solve, V comes back real, and it holds against the plain version
+    rng = np.random.default_rng(300 + m)
+    H = hermitian(rng, 2, m, complex_=False)
+    sweeps = fast_sweeps(m)
+    before = jk.jacobi_eigh_k2.by_shape[(m, 2, "f32", sweeps)]
+    check(H, sweeps, cuda_device)
+    assert jk.jacobi_eigh_k2.by_shape[(m, 2, "f32", sweeps)] == before + 1
+    _, V = jk.jacobi_eigh_k2(torch.from_numpy(H).to(cuda_device), sweeps=sweeps)
+    assert V.dtype == torch.float32 and not V.is_complex()
+
+
+@pytest.mark.gpu
 def test_k2_rejects_what_it_does_not_take(cuda_device):
     H = torch.eye(6, dtype=torch.complex64, device=cuda_device)
     with pytest.raises(ValueError):
