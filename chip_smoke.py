@@ -8,7 +8,12 @@ Drives the port's two paths once each at full size and checks them:
 3. K1 check  K1 against its plain torch version (run in complex128) on the
              card: the zT path's shape (60 sites, chi 256, the 4096 scan
              configurations), a chi=8 chain with B=5, a chi=32 chain with
-             B=1000; tolerance max |delta| / max |ref| <= 1e-5;
+             B=1000, the ragged chains of the K1 GPU tests
+             (tests/port/port_helpers.py: bond ranks zero-padded to chi with
+             dead lanes in the middle of bonds, widths off the 64-column
+             tile; B = 1, 33, 4097; all rows bit 0, all bit 1); tolerance
+             max |delta| / max |ref| <= 1e-5; and the same chain with extra
+             dead lanes (chi 128 inside chi 256) read bit-identically;
 4. K2 check  K2 against its plain torch version (same sweeps, same dtype, on
              the card; the share of bit-identical entries is logged) on
              seeded Hermitian inputs: the QFT path's shapes at
@@ -42,7 +47,14 @@ Drives the port's two paths once each at full size and checks them:
              n=16 with the bar 8e-3; then K2 against its plain version, as
              in 4, at every (m, B, dtype, sweeps) the two runs launched it
              with;
-8. timing    K1 against its plain version on the zT path's chain; K2
+8. timing    K1 (live-lane pre-pass included) against its plain version
+             at both path shapes, the zT chain and the QFT n=28 readout
+             chain of phase 7, in turns, with the kernel alone on the
+             packed chain, the pre-pass's own time, the live share
+             (sum w_s w_{s+1} / n chi^2), the bound (8 B sum w_s w_{s+1}
+             flops, the live cores' bytes) and the padded work's time at
+             the fp32 peak (8 B n chi^2 flops: the bound of a kernel that
+             multiplies all of chi, as K1 did before its pre-pass); K2
              against its plain version and torch.linalg.eigh at the QFT
              path's shapes, CUDA events, in turns, with K2's time per
              Jacobi round;
@@ -66,6 +78,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -97,6 +110,15 @@ def check(cond: bool, what: str) -> None:
 
 
 # ------------------------------ workload ------------------------------------
+
+def port_helpers():
+    """tests/port/port_helpers.py (no JAX): the random and ragged chains
+    that the K1 GPU tests use too."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests" / "port"))
+    import port_helpers as ph
+
+    return ph
+
 
 def scan_samples(n):
     """bench.py's 4096 (k, l) scan points: half near the peak (where the
@@ -232,19 +254,6 @@ def bound(ops, nbytes):
                                        else "bytes")
 
 
-def random_chain(rng, n, chi, dev):
-    """Unit-scale random complex64 chain; entries ~ N(0, 1/(2 chi)) per
-    part keep |v| O(1) along the chain."""
-    from qilaplace_tpu_torch import MPS
-
-    s = 1.0 / math.sqrt(2 * chi)
-    cores = (rng.normal(size=(n, chi, 2, chi))
-             + 1j * rng.normal(size=(n, chi, 2, chi))) * s
-    return MPS(cores=torch.from_numpy(cores.astype(np.complex64)).to(dev),
-               ranks=torch.full((n + 1,), chi, dtype=torch.int32, device=dev),
-               amplitude=torch.tensor(1.0, device=dev))
-
-
 def k1_vs_plain(chain, cfg):
     """(max abs err, max abs err / max |ref|) of K1 against the plain
     version run in complex128 on the same inputs."""
@@ -265,50 +274,77 @@ def k1_vs_plain(chain, cfg):
 
 
 def phase_k1_check(dev, cfg_main):
+    from qilaplace_tpu_torch.ops.readout_kernels import coefficient_batch_k1
+
+    ph = port_helpers()
     rng = np.random.default_rng(2024)
-    cases = [("main-path shape", 2 * N_BITS, 256, cfg_main),
-             ("chi=8 n=5 B=5", 5, 8, None),
-             ("chi=32 n=20 B=1000", 20, 32, None)]
-    for name, n, chi, cfg in cases:
-        chain = random_chain(rng, n, chi, dev)
-        if cfg is None:
-            B = 5 if chi == 8 else 1000
-            cfg = torch.from_numpy(
-                rng.integers(0, 2, (B, n)).astype(np.int32)).to(dev)
+
+    def bits(B, n):
+        return torch.from_numpy(
+            rng.integers(0, 2, (B, n)).astype(np.int32)).to(dev)
+
+    cases = [("main-path shape", ph.random_chain(rng, 2 * N_BITS, 256, dev),
+              cfg_main),
+             ("chi=8 n=5 B=5", ph.random_chain(rng, 5, 8, dev), bits(5, 5)),
+             ("chi=32 n=20 B=1000", ph.random_chain(rng, 20, 32, dev),
+              bits(1000, 20))]
+    for n, chi, ranks, dead in ph.RAGGED.values():
+        chain = ph.ragged_chain(rng, n, chi, ranks, dead, dev)
+        for B in (1, 33, 4097):
+            cases.append((f"ragged chi={chi} n={n} B={B}", chain, bits(B, n)))
+        for bit in (0, 1):
+            cases.append((f"ragged chi={chi} n={n} B=100 all bits {bit}",
+                          chain, torch.full((100, n), bit, dtype=torch.int32,
+                                            device=dev)))
+    for name, chain, cfg in cases:
         err, rel = k1_vs_plain(chain, cfg)
         log(f"[k1] {name}: max_abs_err {err:.3e} rel {rel:.3e} "
             f"(tol {K1_TOL:g})")
         check(rel <= K1_TOL, f"K1 disagrees with its plain version ({name})")
+    # extra dead lanes change nothing the kernel computes
+    chain = ph.ragged_chain(rng, 10, 128, [1, 4, 16, 60, 128, 100, 128, 77,
+                                           30, 4, 1], {5: 64}, dev)
+    cfg = bits(999, 10)
+    same = torch.equal(coefficient_batch_k1(chain, cfg),
+                       coefficient_batch_k1(ph.embed(chain, 256, rng), cfg))
+    log(f"[k1] chi=128 chain inside chi 256 (extra dead lanes): "
+        f"bit-identical {same}")
+    check(same, "K1 changed with extra dead lanes")
+
+
+def zt_operands(dev):
+    """The bench's n=30 sin_decay operands on the card: (W, psi) and the
+    seconds of the encode, the build and the ship."""
+    import qilaplace_tpu_torch as qt
+
+    t0 = time.perf_counter()
+    psi = qt.tighten(qt.signal_ztmps_cross(
+        sin_decay_fn(N_BITS), cutoff=CUTOFF, maxdim=CHI, device="cpu"))
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pack = qt.zt_product_pack(N_BITS, WR, cutoff=CUTOFF, maxdim=CHI)
+    t_build = time.perf_counter() - t0
+
+    def ship():
+        W = qt.tighten(qt.mpo_from_pack(pack, device=dev,
+                                        dtype=torch.complex64))
+        return W, psi.to(dev, torch.float32)
+
+    (W, psi_d), t_ship = synced(ship)
+    return W, psi_d, (t_enc, t_build, t_ship)
 
 
 def phase_main_path(dev, ks, ls, configs):
     import qilaplace_tpu_torch as qt
 
-    def setup():
-        t0 = time.perf_counter()
-        psi = qt.tighten(qt.signal_ztmps_cross(
-            sin_decay_fn(N_BITS), cutoff=CUTOFF, maxdim=CHI, device="cpu"))
-        t_enc = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pack = qt.zt_product_pack(N_BITS, WR, cutoff=CUTOFF, maxdim=CHI)
-        t_build = time.perf_counter() - t0
-
-        def ship():
-            W = qt.tighten(qt.mpo_from_pack(pack, device=dev,
-                                            dtype=torch.complex64))
-            return W, psi.to(dev, torch.float32)
-
-        (W, psi_d), t_ship = synced(ship)
-        return W, psi_d, (t_enc, t_build, t_ship)
-
     def scan(W, psi_d):
         return synced(lambda: qt.direct_vals(W, psi_d, configs))
 
-    W, psi_d, _ = setup()
+    W, psi_d, _ = zt_operands(dev)
     scan(W, psi_d)  # warm-up
     runs = []
     for _ in range(3):
-        W, psi_d, parts = setup()
+        W, psi_d, parts = zt_operands(dev)
         vals, t_scan = scan(W, psi_d)
         runs.append((sum(parts) + t_scan, parts, t_scan, vals))
     total, (t_enc, t_build, t_ship), t_scan, vals = sorted(
@@ -368,35 +404,56 @@ def phase_pole(dev):
     check(dist < bar, "pole search missed the pole")
 
 
-def phase_timing(chain, cfg, smi):
-    from qilaplace_tpu_torch.ops.readout_kernels import (
-        coefficient_batch_k1,
-        coefficient_batch_k1_reference,
-    )
+def phase_timing(chain, cfg, smi, shape):
+    """K1 against its plain complex64 version on one path chain, in turns,
+    with the live-lane pre-pass alone and the kernel alone on the packed
+    chain beside them; returns the record of the ``kernels`` line."""
+    from qilaplace_tpu_torch.ops import readout_kernels as rk
 
     err, rel = k1_vs_plain(chain, cfg)
-    check(rel <= K1_TOL, "K1 disagrees with its plain version (main chain)")
-    kernel = lambda: coefficient_batch_k1(chain, cfg)  # noqa: E731
-    plain = lambda: coefficient_batch_k1_reference(chain, cfg)  # noqa: E731
-    kernel(), plain()  # warm-up
-    ms_plain, ms_kernel = [], []
-    for _ in range(3):  # in turns: plain, kernel, kernel, plain, ...
-        ms_plain.append(event_ms(plain))
-        ms_kernel.append(event_ms(kernel))
-        ms_kernel.append(event_ms(kernel))
-        ms_plain.append(event_ms(plain))
-    ms_k, ms_p = float(np.median(ms_kernel)), float(np.median(ms_plain))
+    check(rel <= K1_TOL, f"K1 disagrees with its plain version ({shape})")
     B, n, chi = cfg.shape[0], chain.n, chain.chi
-    # the selected branch only: one complex MAC (8 flops) per (row, k, j)
-    flops = 8.0 * B * n * chi**2
-    nbytes = chain.cores.numel() * 8 + cfg.numel() * 4 + B * 8
-    bound_ms, bound_by = bound(flops, nbytes)
-    log(f"[time] K1 on the main chain (n {n}, chi {chi}, B {B}): kernel "
-        f"{ms_k:.3f} ms ({flops / ms_k / 1e6:.1f} GFLOP/s), plain c64 "
-        f"{ms_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); max_abs_err "
+    packed, widths = rk.pack_live_lanes(chain.cores)
+    amp = chain.amplitude.to(device=cfg.device,
+                             dtype=torch.float32).reshape(1)
+    out = torch.empty(B, dtype=torch.complex64, device=cfg.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    fns = {"kernel": lambda: rk.coefficient_batch_k1(chain, cfg),
+           "plain": lambda: rk.coefficient_batch_k1_reference(chain, cfg),
+           "prepass": lambda: rk.pack_live_lanes(chain.cores),
+           "alone": lambda: rk._kernel()(
+               packed.data_ptr(), widths.data_ptr(), cfg.data_ptr(),
+               amp.data_ptr(), out.data_ptr(), B, n, packed.shape[1], stream)}
+    for f in fns.values():
+        f()  # warm-up
+    check(fns["alone"]() == 0, f"K1 alone failed to launch ({shape})")
+    ms = {k: [] for k in fns}
+    for _ in range(3):  # in turns: plain, kernel, ..., then reversed
+        for k in ("plain", "kernel", "prepass", "alone", "alone", "prepass",
+                  "kernel", "plain"):
+            ms[k].append(event_ms(fns[k]))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    w = widths.double().cpu()
+    live = float((w[:-1] * w[1:]).sum())
+    io_bytes = cfg.numel() * 4 + B * 8
+    # one complex MAC (8 flops) per (row, k, j) of the selected branch
+    pad_ms, _ = bound(8.0 * B * n * chi**2,
+                      chain.cores.numel() * 8 + io_bytes)
+    live_ms, live_by = bound(8.0 * B * live, 2 * live * 8 + io_bytes)
+    log(f"[time] K1 on the {shape} (n {n}, chi {chi}, B {B}): kernel "
+        f"{med['kernel']:.4f} ms with the pre-pass ({med['prepass']:.4f} ms "
+        f"the pre-pass alone, {med['alone']:.4f} ms the kernel alone), plain "
+        f"c64 {med['plain']:.4f} ms; live share {live / (n * chi**2):.4f}; "
+        f"bound {live_ms:.4f} ms ({live_by}): {live_ms / med['kernel']:.1%} "
+        f"of it with the pre-pass, {live_ms / med['alone']:.1%} alone; the "
+        f"padded work at the fp32 peak {pad_ms:.4f} ms; max_abs_err "
         f"{err:.3e} rel {rel:.3e}; card {smi}")
-    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
-                bound_by=bound_by)
+    check(med["kernel"] < med["plain"],
+          f"K1 slower than its plain version ({shape})")
+    return dict(max_abs_err=err, ms=med["kernel"], plain_ms=med["plain"],
+                bound_ms=live_ms, bound_by=live_by, alone_ms=med["alone"],
+                prepass_ms=med["prepass"], padded_work_ms=pad_ms,
+                live_share=live / (n * chi**2))
 
 
 # ------------------------------ kernel K2 -----------------------------------
@@ -571,10 +628,10 @@ def qft_freqs(n):
 
 def phase_qft(dev, n, runs=3):
     """QFTPipeline(n) on the card: build, encode, apply, read, each stage
-    timed; median of ``runs`` after a warm-up. Returns the error and the
-    launch counts of one run."""
+    timed; median of ``runs`` after a warm-up. Returns the error, the
+    launch counts of one run and the readout's chain and configs."""
     import qilaplace_tpu_torch as qt
-    from qilaplace_tpu_torch.core.mps import _chain
+    from qilaplace_tpu_torch.core.mps import MPS, _chain
     from qilaplace_tpu_torch.ops.jacobi import jacobi_eigh
     from qilaplace_tpu_torch.ops.jacobi_kernels import jacobi_eigh_k2
     from qilaplace_tpu_torch.ops.readout_kernels import (
@@ -617,9 +674,12 @@ def phase_qft(dev, n, runs=3):
     check(got.shape == (len(ks),), "QFT readout shape")
     # the readout at the output state's own shape (chi 64, complex64)
     # against K1's plain version in complex128 on the same configs
-    cfg = tensor_int_to_bits(freqs, n, order="lsb", device=dev).to(torch.int32)
+    cfg = tensor_int_to_bits(freqs, n, order="lsb",
+                             device=dev).to(torch.int32).contiguous()
+    read_chain = MPS(cores=_chain(out).cores.contiguous(),
+                     ranks=_chain(out).ranks, amplitude=_chain(out).amplitude)
     ref = coefficient_batch_k1_reference(
-        _chain(out).to(dtype=torch.complex128), cfg)
+        read_chain.to(dtype=torch.complex128), cfg)
     k1_rel = float((got.to(torch.complex128) - ref).abs().max()
                    / ref.abs().max())
     log(f"[qft] n={n}: readout (K1, chi {_chain(out).chi}) vs plain c128: "
@@ -649,7 +709,7 @@ def phase_qft(dev, n, runs=3):
           f"the QFT path n={n} ran the plain Jacobi solver on the card")
     check(np.isfinite(err) and err <= QFT_BARS[n],
           f"QFT n={n} max_err_rel_peak {err:.3e} > {QFT_BARS[n]:g}")
-    return err, counts
+    return err, counts, (read_chain, cfg)
 
 
 def device_busy(prof, wall_s):
@@ -737,11 +797,12 @@ def main():
     check(k1_zt > 0, "the zT path never launched K1")
 
     phase_pole(dev)
-    qft_err, qft_counts = phase_qft(dev, QFT_BITS)
-    _, qft16_counts = phase_qft(dev, 16)
+    qft_err, qft_counts, qft_read = phase_qft(dev, QFT_BITS)
+    _, qft16_counts, _ = phase_qft(dev, 16)
     k2_err = max(k2_err, phase_k2_path_shapes(
         dev, set(qft_counts["k2_by_shape"]) | set(qft16_counts["k2_by_shape"])))
-    k1 = phase_timing(chain, configs, smi)
+    k1 = phase_timing(chain, configs, smi, "zT chain")
+    k1_qft = phase_timing(*qft_read, smi, f"QFT n={QFT_BITS} readout chain")
     k2_times = phase_k2_timing(smi)
     phase_trace(dev)
     # K2's line: its most launched shape on the QFT path (the build's
@@ -760,6 +821,14 @@ def main():
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": None,
+        "alone_ms": k1["alone_ms"],
+        "prepass_ms": k1["prepass_ms"],
+        "padded_work_ms": k1["padded_work_ms"],
+        "live_share": k1["live_share"],
+        "qft": {k: k1_qft[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "alone_ms", "prepass_ms",
+                                       "padded_work_ms", "live_share",
+                                       "max_abs_err")},
     }, {
         "name": "jacobi_eigh_k2",
         "route": "cuda",

@@ -7,7 +7,8 @@ JAX, so it also runs where only the port is installed:
 
 Tolerance: max |kernel - plain(c128)| / max |plain(c128)| <= 1e-5 (fp32
 accumulation over chi terms and n sites; about 1e-6 is expected at the
-main-path shape)."""
+main-path shape). The kernel's arithmetic depends only on the live widths
+and the bits, so extra dead lanes leave its outputs bit-identical."""
 
 import math
 
@@ -19,18 +20,9 @@ import qilaplace_tpu_torch as qt
 from qilaplace_tpu_torch.ops import readout_kernels as rk
 from qilaplace_tpu_torch.utils.bits import paired_config_from_kl
 
+from port_helpers import RAGGED, embed, ragged_chain, random_chain
+
 TOL = 1e-5
-
-
-def random_chain(rng, n, chi, device):
-    scale = 1.0 / math.sqrt(2 * chi)  # keeps |v| O(1) along the chain
-    cores = (rng.normal(size=(n, chi, 2, chi))
-             + 1j * rng.normal(size=(n, chi, 2, chi))) * scale
-    return qt.MPS(
-        cores=torch.from_numpy(cores.astype(np.complex64)).to(device),
-        ranks=torch.full((n + 1,), chi, dtype=torch.int32, device=device),
-        amplitude=torch.tensor(1.5, device=device),
-    )
 
 
 def rel_err(got, ref):
@@ -42,7 +34,7 @@ def rel_err(got, ref):
                                      (9, 100, 65), (60, 256, 4096)])
 def test_k1_kernel_matches_plain_version(cuda_device, n, chi, B):
     rng = np.random.default_rng(chi)
-    chain = random_chain(rng, n, chi, cuda_device)
+    chain = random_chain(rng, n, chi, cuda_device, amplitude=1.5)
     cfg = torch.from_numpy(
         rng.integers(0, 2, (B, n)).astype(np.int32)).to(cuda_device)
     before = rk.coefficient_batch_k1.launches
@@ -56,9 +48,57 @@ def test_k1_kernel_matches_plain_version(cuda_device, n, chi, B):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(RAGGED))
+@pytest.mark.parametrize("B", [1, 33, 4097])
+def test_k1_ragged_ranks(cuda_device, shape, B):
+    n, chi, ranks, dead = RAGGED[shape]
+    rng = np.random.default_rng(B + chi)
+    chain = ragged_chain(rng, n, chi, ranks, dead, cuda_device)
+    cfg = torch.from_numpy(
+        rng.integers(0, 2, (B, n)).astype(np.int32)).to(cuda_device)
+    got = rk.coefficient_batch_k1(chain, cfg)
+    torch.cuda.synchronize()
+    ref = rk.coefficient_batch_k1_reference(chain.to(dtype=torch.complex128),
+                                            cfg)
+    assert rel_err(got, ref) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bit", [0, 1])
+def test_k1_all_rows_one_branch(cuda_device, bit):
+    n, chi, ranks, dead = RAGGED["off-tile"]
+    rng = np.random.default_rng(bit)
+    chain = ragged_chain(rng, n, chi, ranks, dead, cuda_device)
+    cfg = torch.full((100, n), bit, dtype=torch.int32, device=cuda_device)
+    got = rk.coefficient_batch_k1(chain, cfg)
+    torch.cuda.synchronize()
+    ref = rk.coefficient_batch_k1_reference(chain.to(dtype=torch.complex128),
+                                            cfg)
+    assert torch.equal(got, got[:1].expand(100))  # one value, every row
+    assert rel_err(got, ref) <= TOL
+
+
+@pytest.mark.gpu
+def test_k1_dead_lanes_leave_outputs_bit_identical(cuda_device):
+    rng = np.random.default_rng(128)
+    chain = ragged_chain(rng, 10, 128, [1, 4, 16, 60, 128, 100, 128, 77, 30,
+                                        4, 1], {5: 64}, cuda_device)
+    big = embed(chain, 256, rng)
+    cfg = torch.from_numpy(
+        rng.integers(0, 2, (999, 10)).astype(np.int32)).to(cuda_device)
+    base = rk.coefficient_batch_k1(chain, cfg)
+    got = rk.coefficient_batch_k1(big, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, base)
+    ref = rk.coefficient_batch_k1_reference(chain.to(dtype=torch.complex128),
+                                            cfg)
+    assert rel_err(got, ref) <= TOL
+
+
+@pytest.mark.gpu
 def test_k1_kernel_rejects_what_it_does_not_take(cuda_device):
     rng = np.random.default_rng(0)
-    chain = random_chain(rng, 4, 8, cuda_device)
+    chain = random_chain(rng, 4, 8, cuda_device, amplitude=1.5)
     cfg = torch.zeros(3, 4, dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
         rk.coefficient_batch_k1(chain.to(dtype=torch.complex128), cfg)

@@ -40,7 +40,8 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [Path(REPO, "chip_smoke.py")],
+    "path", PORT_FILES + [Path(REPO, "chip_smoke.py"),
+                          Path(REPO, "tests", "port", "port_helpers.py")],
     ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_import_anywhere_in_the_source(path):
     """Also the imports inside functions, which importing never runs."""
