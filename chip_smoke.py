@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port (qilaplace_tpu_torch) on one CUDA card.
 
-Drives the port's two paths once each at full size and checks them:
+Drives the port's paths (the n=30 zT scan, the QFT spectrum, the gate-built
+zT and DT operators with the apply-then-read pole search) at full size and
+checks them:
 
 1. env       torch / CUDA versions, the card, its power limit;
 2. build     kernels K1 and K2 from qilaplace_tpu_torch/csrc, one nvcc each,
@@ -38,12 +40,13 @@ Drives the port's two paths once each at full size and checks them:
 7. QFT path n=28: QFTPipeline(28, chi=64, cutoff=1e-9) on the sin signal
              (2^28 float32 samples, made on the card): rsvd encode (k=50,
              p=5, q=2), the gate-built QFT operator, the zip-up apply and a
-             K1 readout at 4096 frequencies, each stage timed (median of 3
-             after a warm-up), scored against the closed-form DFT; K1 and K2
-             launches and plain Jacobi calls on the card counted over the
-             path; error bar 0.1 (a broken path, not the device route's
-             f32 accuracy); the readout (K1 at the output state's chi 64)
-             against K1's plain version in complex128 within 1e-5; then
+             K1 readout at 4096 frequencies, each stage timed (the faster
+             of 2 runs after a warm-up; at n=16 the median of 3), scored
+             against the closed-form DFT; K1 and K2 launches and plain
+             Jacobi calls on the card counted over the path; error bar
+             0.1 (a broken path, not the device route's f32 accuracy);
+             the readout (K1 at the output state's chi 64) against K1's
+             plain version in complex128 within 1e-5; then
              n=16 with the bar 8e-3; then K2 against its plain version, as
              in 4, at every (m, B, dtype, sweeps) the two runs launched it
              with;
@@ -63,6 +66,42 @@ Drives the port's two paths once each at full size and checks them:
              time and launches, all kernels' device time, the stage's wall
              time under the profiler and the card's busy share (the union
              of device activity over that wall time).
+
+10. gate pole the reference tutorial's pole search on the gate path:
+             x_j = e^{-1.6e-4 j} sin(4.08e-3 j), n=20, TT-SVD encode on the
+             card (cutoff 1e-12, maxdim 128), ZTPipeline(20, chi=128,
+             build_cutoff=1e-9, engine="gate", readout="apply")
+             .find_poles(128, 128, 24): two gate builds (wr = 2 pi, 0.5),
+             the zip-up apply, K1 reads of the chi-128 product states; the
+             pole within max(5e-4, 4 * 8 * 2 pi / N) of e^{-lam +- i w};
+             the search's wall time, K1 and K2 launches; then its two
+             transforms replayed through zt_mpo(engine="gate") and apply,
+             each timed, and K1 against its plain version in complex128 at
+             each scan's configs (B = 16384, 16641, 2401) on the replayed
+             product states, whose K1 reads must be the search's own;
+11. DT       DTPipeline(20, 2 pi, chi=64, build_cutoff=1e-9) on the
+             sin_decay signal, 4096 (k, j) read against
+             x_j e^{-wr k j / N} / sqrt(N); bar 0.1 (a broken path);
+12. gate n=30 the reference's published zT runtime configuration once:
+             sin_decay materialized (2^30 float32 on the card), rsvd encode
+             (k=50, p=5, q=2, cutoff 1e-9, maxdim 128), build_zt_mpo(30,
+             2 pi, cutoff=1e-9, chi=128) in complex64 as its two steps,
+             each timed (the factor folds, then the fuse), the zip-up
+             apply and a
+             chi_grid read of the 64 x 64 grid of the first 64 near-peak k
+             and l of scan_samples(30) (B = 4096), scored against the
+             oracle (logged, not gated); K1 against its plain version in
+             complex128 on that chi-128 product chain; then K2 against its
+             plain version, as in 4, at every (m, B, dtype, sweeps) the
+             gate phases launched it with that no earlier path did, K1
+             timed on the product chain as in 8, K2 timed at the gate
+             phases' three most launched new shapes and their most
+             launched shape in device memory (m > 84);
+13. trace    one n=20 gate build under torch.profiler, as in 9, with
+             device activity only.
+
+Every gate phase sets the counts to 0 just before it, reads them just
+after and fails if the plain Jacobi solver ran on the card.
 
 Every failure raises. Without a CUDA device the script exits nonzero at
 once. The last line of stdout is one JSON object naming the device.
@@ -96,6 +135,11 @@ QFT_BITS = 28        # the reference's published QFT size ("n=28 :sin")
 QFT_CHI, QFT_CUTOFF = 64, 1e-9
 QFT_ENCODE = dict(method="rsvd", k=50, p=5, q=2)
 QFT_BARS = {28: 0.1, 16: 8e-3}  # max_err_rel_peak bars (see the docstring)
+GATE_CUTOFF = 1e-9  # the reference's zt_full_runtime cutoff: range-mode zips
+POLE_BITS = 20       # the reference tutorial's flagship pole search
+POLE_LAM, POLE_W = 1.6e-4, 4.08e-3  # its signal e^{-lam j} sin(w j)
+DT_BITS, DT_CHI, DT_BAR = 20, 64, 0.1
+GRID = 64            # the n=30 gate read: a GRID x GRID chi_grid
 PEAK_FP32 = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s
 
@@ -547,9 +591,10 @@ def phase_k2_path_shapes(dev, shapes):
     return worst
 
 
-def phase_k2_timing(smi):
+def phase_k2_timing(smi, extra=()):
     """K2 against its plain version and torch.linalg.eigh at the QFT path's
-    shapes, in turns; returns one record per shape."""
+    shapes and the ``extra`` (m, B, complex, sweeps) shapes, in turns;
+    returns one record per shape."""
     from qilaplace_tpu_torch.ops.jacobi import fast_sweeps
     from qilaplace_tpu_torch.ops.jacobi_kernels import (
         jacobi_eigh_k2,
@@ -559,6 +604,7 @@ def phase_k2_timing(smi):
     rng = np.random.default_rng(7)
     shapes = [(24, 1, True, 5), (40, 1, True, fast_sweeps(40)),
               (80, 1, True, fast_sweeps(80)), (56, 8, False, fast_sweeps(56))]
+    shapes += [sh for sh in extra if sh not in shapes]
     out = []
     for m, B, cplx, sweeps in shapes:
         H = torch.from_numpy(hermitian(rng, B, m, complex_=cplx)).to("cuda")
@@ -628,7 +674,8 @@ def qft_freqs(n):
 
 def phase_qft(dev, n, runs=3):
     """QFTPipeline(n) on the card: build, encode, apply, read, each stage
-    timed; median of ``runs`` after a warm-up. Returns the error, the
+    timed; the median of ``runs`` after a warm-up (the faster of two).
+    Returns the error, the
     launch counts of one run and the readout's chain and configs."""
     import qilaplace_tpu_torch as qt
     from qilaplace_tpu_torch.core.mps import MPS, _chain
@@ -670,7 +717,7 @@ def phase_qft(dev, n, runs=3):
                           plain_cuda=jacobi_eigh.cuda_calls)
         runs_out.append((sum(stages.values()), stages, res))
     total, stages, (pipe, psi, out, got) = sorted(
-        runs_out, key=lambda r: r[0])[len(runs_out) // 2]
+        runs_out, key=lambda r: r[0])[(len(runs_out) - 1) // 2]
     check(got.shape == (len(ks),), "QFT readout shape")
     # the readout at the output state's own shape (chi 64, complex64)
     # against K1's plain version in complex128 on the same configs
@@ -710,6 +757,274 @@ def phase_qft(dev, n, runs=3):
     check(np.isfinite(err) and err <= QFT_BARS[n],
           f"QFT n={n} max_err_rel_peak {err:.3e} > {QFT_BARS[n]:g}")
     return err, counts, (read_chain, cfg)
+
+
+# ------------------------------ gate path -----------------------------------
+
+def reset_counts():
+    """Every kernel and plain-solver count to 0."""
+    from qilaplace_tpu_torch.ops.jacobi import jacobi_eigh
+    from qilaplace_tpu_torch.ops.jacobi_kernels import jacobi_eigh_k2
+    from qilaplace_tpu_torch.ops.readout_kernels import coefficient_batch_k1
+
+    coefficient_batch_k1.launches = 0
+    jacobi_eigh_k2.launches = 0
+    jacobi_eigh_k2.by_shape.clear()
+    jacobi_eigh.cuda_calls = 0
+
+
+def read_counts():
+    from qilaplace_tpu_torch.ops.jacobi import jacobi_eigh
+    from qilaplace_tpu_torch.ops.jacobi_kernels import jacobi_eigh_k2
+    from qilaplace_tpu_torch.ops.readout_kernels import coefficient_batch_k1
+
+    return dict(k1=coefficient_batch_k1.launches, k2=jacobi_eigh_k2.launches,
+                k2_by_shape=dict(jacobi_eigh_k2.by_shape),
+                plain_cuda=jacobi_eigh.cuda_calls)
+
+
+def log_counts(tag, counts):
+    top = sorted(counts["k2_by_shape"].items(), key=lambda kv: -kv[1])
+    by_shape = ", ".join(f"({kind} m={m}, B={B}, sweeps={sw}): {c}"
+                         for (m, B, kind, sw), c in top)
+    log(f"[{tag}] launches K1 {counts['k1']} K2 {counts['k2']} "
+        f"[{by_shape}]; plain Jacobi calls on the card "
+        f"{counts['plain_cuda']}")
+    check(counts["plain_cuda"] == 0,
+          f"{tag}: the plain Jacobi solver ran on the card")
+
+
+def grid_read(state, ks, ls):
+    """(chain, configs): what chi_grid hands K1 for the ``ks`` x ``ls``
+    grid of a product state."""
+    from qilaplace_tpu_torch.core.mps import MPS
+    from qilaplace_tpu_torch.utils.bits import paired_config_from_kl
+
+    m = state.chain
+    K, L = torch.meshgrid(ks, ls, indexing="ij")
+    cfg = paired_config_from_kl(K.reshape(-1), L.reshape(-1), state.n)
+    return (MPS(cores=m.cores.contiguous(), ranks=m.ranks,
+                amplitude=m.amplitude), cfg.contiguous())
+
+
+def check_k1_read(tag, state, scan):
+    """K1 against its plain version (complex128) on ``state`` at the
+    configs of the ScanResult ``scan``; the K1 read must also be the one
+    the scan returned."""
+    from qilaplace_tpu_torch.ops.readout_kernels import coefficient_batch_k1
+
+    chain, cfg = grid_read(state, scan.ks, scan.ls)
+    again = coefficient_batch_k1(chain, cfg).reshape(scan.chi.shape)
+    gap = float((again - scan.chi).abs().max() / scan.chi.abs().max())
+    err, rel = k1_vs_plain(chain, cfg)
+    log(f"[{tag}] K1 on the product chain (n {chain.n}, chi {chain.chi}, "
+        f"B {cfg.shape[0]}) vs plain c128: max_abs_err {err:.3e} rel "
+        f"{rel:.3e} (tol {K1_TOL:g}); against the scan's own read "
+        f"{gap:.3e}")
+    check(rel <= K1_TOL, f"{tag}: K1 disagrees with its plain version")
+    check(gap <= K1_TOL, f"{tag}: the replayed state reads otherwise than "
+          "the scan's")
+    return chain, cfg
+
+
+def sin_decay_on_card(n, dev, chunk=2**26):
+    """The sin_decay signal (FREQ, DECAY) materialized on the card in
+    float32, evaluated in float64 a chunk at a time."""
+    N = 2**n
+    dt = 1.0 / (FREQ * N)
+    x = torch.empty(N, dtype=torch.float32, device=dev)
+    for lo in range(0, N, chunk):
+        j = torch.arange(lo, min(N, lo + chunk), dtype=torch.float64,
+                         device=dev)
+        x[lo:lo + j.numel()] = torch.sin(FREQ * dt * j) * torch.exp(
+            -DECAY * dt * j)
+    return x
+
+
+def phase_gate_pole(dev):
+    """The reference tutorial's pole search on the gate path: n=20,
+    chi=128, ZTPipeline(engine="gate", readout="apply"), two gate builds
+    (wr = 2 pi and 0.5), the zip-up apply and K1 reads of the product
+    states. The search is timed whole; its stages are then replayed
+    through the same entry points, each timed, and K1 is held against its
+    plain version at every scan's configs on the replayed product
+    states."""
+    import qilaplace_tpu_torch as qt
+
+    n = POLE_BITS
+    N = 2**n
+
+    def signal():
+        j = torch.arange(N, dtype=torch.float64, device=dev)
+        return (torch.exp(-POLE_LAM * j) * torch.sin(POLE_W * j)).float()
+
+    reset_counts()
+    x, _ = synced(signal)
+    psi, t_enc = synced(lambda: qt.signal_ztmps(x, cutoff=1e-12, maxdim=CHI,
+                                                device=dev))
+    del x
+    pipe = qt.ZTPipeline(n, chi=CHI, build_cutoff=GATE_CUTOFF, engine="gate",
+                         readout="apply", cache=False, device=dev)
+    res, t_search = synced(lambda: pipe.find_poles(
+        psi, coarse_points=128, fine_points=128, superfine_half=24))
+    counts = read_counts()
+    z = complex(res.z_pole)
+    poles = [complex(math.exp(-POLE_LAM) * complex(math.cos(POLE_W),
+                                                   s * math.sin(POLE_W)))
+             for s in (1, -1)]
+    dist = min(abs(z - p) for p in poles)
+    bar = max(5e-4, 4 * 8 * 2 * math.pi / N)
+    log(f"[gate-pole] n={n}: encode_s {t_enc:.4f} (psi rank "
+        f"{qt.max_bond(psi)}, chi {psi.chain.chi}); search {t_search:.4f} s")
+    log(f"[gate-pole] peak (k, l) = ({int(res.superfine.k_peak)}, "
+        f"{int(res.superfine.l_peak)}), z_pole {z!r}, distance to the pole "
+        f"{dist:.3e} (bar {bar:.3e})")
+    log_counts("gate-pole", counts)
+    check(bool(torch.isfinite(torch.view_as_real(res.superfine.chi)).all()),
+          "gate pole search: readout not finite")
+    check(counts["k1"] > 0, "the gate pole search never launched K1")
+    check(counts["k2"] > 0, "the gate pole search never launched K2")
+    check(dist < bar, f"gate pole search missed the pole ({dist:.3e})")
+
+    # the replay: the search's two transforms, as coarse_to_fine_pole_search
+    # forms them, each stage timed; K1 checked at each scan's configs
+    stages = {}
+    for wr, scans in ((2 * math.pi, ("coarse",)),
+                      (0.5, ("fine", "superfine"))):
+        W, t_build = synced(lambda: qt.zt_mpo(
+            n, wr, engine="gate", cutoff=GATE_CUTOFF, maxdim=CHI,
+            dtype=torch.complex64, cache=False, device=dev))
+        out, t_apply = synced(lambda: qt.apply(W, psi, maxdim=CHI,
+                                               cutoff=GATE_CUTOFF))
+        for name in scans:
+            check_k1_read(f"gate-pole {name}", out, getattr(res, name))
+        stages[wr] = (t_build, t_apply, qt.max_bond(W), out.chain.chi)
+    log("[gate-pole] replayed stages: " + "; ".join(
+        f"wr {wr:g}: build_s {b:.4f} apply_s {a:.4f} (mpo bond {bd}, "
+        f"product state chi {c})" for wr, (b, a, bd, c) in stages.items()))
+    return counts
+
+
+def phase_dt(dev):
+    """DTPipeline(20, 2 pi, chi=64, build_cutoff=1e-9) on the sin_decay
+    signal, read at 4096 (k, j) against x_j e^{-wr k j / N} / sqrt(N)."""
+    import qilaplace_tpu_torch as qt
+
+    n = DT_BITS
+    N = 2**n
+    reset_counts()
+    x = sin_decay_on_card(n, dev)
+    pipe, t_build = synced(lambda: qt.DTPipeline(
+        n, WR, chi=DT_CHI, build_cutoff=GATE_CUTOFF, device=dev))
+    psi, t_enc = synced(lambda: pipe.encode(x))
+    out, t_apply = synced(lambda: pipe.forward(psi))
+    rng = np.random.default_rng(20)
+    h = N_SCAN // 2
+    ks = np.concatenate([rng.integers(0, 256, h), rng.integers(0, N, h)])
+    js = rng.integers(0, N, N_SCAN)
+    got, t_read = synced(lambda: pipe.coefficients(
+        out, torch.from_numpy(ks).to(dev), torch.from_numpy(js).to(dev)))
+    counts = read_counts()
+    got = got.cpu().numpy().astype(np.complex128)
+    dt = 1.0 / (FREQ * N)
+    xj = np.sin(FREQ * dt * js) * np.exp(-DECAY * dt * js)
+    want = xj * np.exp(-WR * ks.astype(np.float64) * js / N) / math.sqrt(N)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"[dt] n={n}: build_s {t_build:.4f} + encode_s {t_enc:.4f} + "
+        f"apply_s {t_apply:.4f} + read_s {t_read:.4f}; max_bond(W) "
+        f"{qt.max_bond(pipe.mpo)}, out {qt.max_bond(out)}; "
+        f"max_err_rel_peak {err:.3e} (bar {DT_BAR:g})")
+    log_counts("dt", counts)
+    check(bool(np.isfinite(got).all()), "DT readout not finite")
+    check(err <= DT_BAR, f"DT max_err_rel_peak {err:.3e} > {DT_BAR:g}")
+    return counts
+
+
+def phase_gate_n30(dev):
+    """The reference's published zT runtime configuration on the gate
+    path, once: n=30 sin_decay materialized, rsvd encode (k=50, p=5,
+    q=2), build_zt_mpo at cutoff 1e-9 / chi 128 in complex64 (its two
+    steps called in turn, so that build_s splits into the factor folds
+    and the fuse), the zip-up apply and a chi_grid read of GRID x GRID
+    near-peak points of scan_samples(30). Accuracy is logged, not gated.
+    Returns the counts and the read's chain and configs."""
+    import qilaplace_tpu_torch as qt
+    from qilaplace_tpu_torch.signals.oracles import (
+        sin_decay_norm,
+        sin_decay_zt_oracle,
+    )
+    from qilaplace_tpu_torch.transforms import zt as zt_mod
+    from qilaplace_tpu_torch.utils.config import bucket_for
+
+    n = N_BITS
+    reset_counts()
+    x, t_sig = synced(lambda: sin_decay_on_card(n, dev))
+    psi, t_enc = synced(lambda: qt.signal_ztmps(
+        x, method="rsvd", k=50, p=5, q=2, cutoff=GATE_CUTOFF, maxdim=CHI,
+        device=dev))
+    del x
+    torch.cuda.empty_cache()
+    # build_zt_mpo(n, WR, cutoff=GATE_CUTOFF, maxdim=CHI, chi=CHI,
+    # dtype=complex64): both factors at the default bucket, folded
+    # together, then fused
+    (W_dt, W_qft), t_fold = synced(lambda: zt_mod._build_factors_concurrent(
+        n, WR, cutoff=GATE_CUTOFF, maxdim=CHI, chi_f=bucket_for(32),
+        dtype=torch.complex64, chi_work_f=None, device=dev))
+    W, t_fuse = synced(lambda: zt_mod._fuse_factors(
+        W_dt, W_qft, chi=CHI, cutoff=GATE_CUTOFF, maxdim=CHI))
+    del W_dt, W_qft
+    out, t_apply = synced(lambda: qt.apply(W, psi, maxdim=CHI,
+                                           cutoff=GATE_CUTOFF))
+    ks_all, ls_all, _ = scan_samples(n)
+    ks, ls = ks_all[:GRID], ls_all[:GRID]  # near-peak half
+    ks_t, ls_t = torch.from_numpy(ks).to(dev), torch.from_numpy(ls).to(dev)
+    vals, t_read = synced(lambda: qt.chi_grid(out, ks_t, ls_t))
+    counts = read_counts()
+    got = vals.cpu().numpy().astype(np.complex128).reshape(-1)
+    K, L = np.meshgrid(ks, ls, indexing="ij")
+    want = sin_decay_zt_oracle(n, K.reshape(-1), L.reshape(-1), wr=WR,
+                               freq=FREQ, decay_rate=DECAY)
+    nrm = sin_decay_norm(n, freq=FREQ, decay_rate=DECAY)
+    err = float(np.abs(got / nrm - want).max() / np.abs(want).max())
+    t_build = t_fold + t_fuse
+    total = t_enc + t_build + t_apply + t_read
+    log(f"[gate-n30] n={n}: total {total:.4f} s = encode_s {t_enc:.4f} + "
+        f"build_s {t_build:.4f} (factor folds {t_fold:.4f} + fuse "
+        f"{t_fuse:.4f}) + apply_s {t_apply:.4f} + read_s {t_read:.4f} "
+        f"(signal {t_sig:.4f} s, not counted)")
+    log(f"[gate-n30] max_bond(W) {qt.max_bond(W)} (ranks "
+        f"{W.chain.ranks.tolist()}); psi rank {qt.max_bond(psi)}, out "
+        f"{qt.max_bond(out)} (chi {out.chain.chi}); max_err_rel_peak "
+        f"{err:.3e} over the {GRID}x{GRID} grid (recorded, not gated)")
+    log_counts("gate-n30", counts)
+    check(vals.shape == (GRID, GRID), "n=30 gate read shape")
+    check(bool(np.isfinite(got).all()), "n=30 gate read not finite")
+    check(np.isfinite(err), "n=30 gate error not finite")
+    check(counts["k1"] > 0, "the n=30 gate read never launched K1")
+    chain, cfg = grid_read(out, ks_t, ls_t)
+    k1_err, k1_rel = k1_vs_plain(chain, cfg)
+    log(f"[gate-n30] K1 on the product chain (n {chain.n}, chi {chain.chi},"
+        f" B {cfg.shape[0]}) vs plain c128: max_abs_err {k1_err:.3e} rel "
+        f"{k1_rel:.3e} (tol {K1_TOL:g})")
+    check(k1_rel <= K1_TOL, "K1 disagrees with its plain version on the "
+          "n=30 gate product chain")
+    return counts, (chain, cfg)
+
+
+def phase_gate_trace(dev, n=POLE_BITS):
+    """One n=20 gate build (wr = 2 pi, cutoff 1e-9, chi 128) under
+    torch.profiler: K2's device time, all kernels and the card's busy
+    share. Device activity only: the build runs about 100 host ops a
+    launch, and recording them too makes the trace's processing take
+    minutes."""
+    import qilaplace_tpu_torch as qt
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = synced(lambda: qt.build_zt_mpo(
+            n, WR, cutoff=GATE_CUTOFF, maxdim=CHI, chi=CHI,
+            dtype=torch.complex64, device=dev))
+    log_trace(f"n={n} gate build", wall, device_busy(prof, wall))
 
 
 def device_busy(prof, wall_s):
@@ -760,17 +1075,21 @@ def phase_trace(dev, n=QFT_BITS):
         _, stages["apply"] = synced(lambda: pipe.forward(psi))
     res["apply"] = device_busy(prof, stages["apply"])
     for stage, r in res.items():
-        if r is None:
-            log(f"[trace] n={n} {stage}: wall {stages[stage]:.4f} s under "
-                "the profiler; no device activity in the trace (not measured)")
-            continue
-        k2_ms, k2_n, dev_ms, busy = r
-        log(f"[trace] n={n} {stage}: wall {stages[stage]:.4f} s under the "
-            f"profiler; K2 {k2_ms:.2f} ms device time in {k2_n} launches "
-            f"({k2_ms / max(k2_n, 1) * 1e3:.1f} us each, "
-            f"{k2_ms / 10 / stages[stage]:.1f} % of the wall time); all "
-            f"kernels {dev_ms:.2f} ms; card busy {100 * busy:.1f} % of the "
-            f"wall time")
+        log_trace(f"n={n} {stage}", stages[stage], r)
+
+
+def log_trace(what, wall, r):
+    """One line of a traced stage: ``r`` is device_busy's result."""
+    if r is None:
+        log(f"[trace] {what}: wall {wall:.4f} s under the profiler; no "
+            "device activity in the trace (not measured)")
+        return
+    k2_ms, k2_n, dev_ms, busy = r
+    log(f"[trace] {what}: wall {wall:.4f} s under the profiler; K2 "
+        f"{k2_ms:.2f} ms device time in {k2_n} launches "
+        f"({k2_ms / max(k2_n, 1) * 1e3:.1f} us each, "
+        f"{k2_ms / 10 / wall:.1f} % of the wall time); all kernels "
+        f"{dev_ms:.2f} ms; card busy {100 * busy:.1f} % of the wall time")
 
 
 def main():
@@ -781,12 +1100,19 @@ def main():
     from qilaplace_tpu_torch.ops.readout_kernels import coefficient_batch_k1
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def mark(what):
+        log(f"[clock] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     smi = phase_env()
     phase_build()
+    mark("build")
     ks, ls, cfg_np = scan_samples(N_BITS)
     configs = torch.from_numpy(cfg_np).to(dev)
     phase_k1_check(dev, configs)
     k2_err = phase_k2_check(dev)
+    mark("K1 and K2 checks")
 
     coefficient_batch_k1.launches = 0
     jacobi_eigh_k2.launches = 0
@@ -797,16 +1123,51 @@ def main():
     check(k1_zt > 0, "the zT path never launched K1")
 
     phase_pole(dev)
-    qft_err, qft_counts, qft_read = phase_qft(dev, QFT_BITS)
+    mark("zT path and pole search")
+    qft_err, qft_counts, qft_read = phase_qft(dev, QFT_BITS, runs=2)
     _, qft16_counts, _ = phase_qft(dev, 16)
     k2_err = max(k2_err, phase_k2_path_shapes(
         dev, set(qft_counts["k2_by_shape"]) | set(qft16_counts["k2_by_shape"])))
+    mark("QFT path")
+
+    # the gate path: each phase sets the counts to 0 just before it
+    pole_counts = phase_gate_pole(dev)
+    dt_counts = phase_dt(dev)
+    n30_counts, n30_read = phase_gate_n30(dev)
+    gate = [pole_counts, dt_counts, n30_counts]
+    gate_shapes = {}
+    for c in gate:
+        for sh, k in c["k2_by_shape"].items():
+            gate_shapes[sh] = gate_shapes.get(sh, 0) + k
+    new_shapes = set(gate_shapes) - set(qft_counts["k2_by_shape"]) \
+        - set(qft16_counts["k2_by_shape"])
+    log(f"[gate] K2 launches by shape over the gate phases: "
+        + ", ".join(f"({kind} m={m}, B={B}, sweeps={sw}): {c}"
+                    for (m, B, kind, sw), c in sorted(
+                        gate_shapes.items(), key=lambda kv: -kv[1]))
+        + f"; {len(new_shapes)} shapes no earlier path launched")
+    k2_err = max(k2_err, phase_k2_path_shapes(dev, new_shapes))
+    mark("gate path")
+
     k1 = phase_timing(chain, configs, smi, "zT chain")
     k1_qft = phase_timing(*qft_read, smi, f"QFT n={QFT_BITS} readout chain")
-    k2_times = phase_k2_timing(smi)
+    k1_gate = phase_timing(*n30_read, smi, "n=30 gate product chain")
+    # K2 timed at the gate phases' three most launched new shapes and at
+    # their most launched shape in device memory (m > SMEM_MAX_M)
+    from qilaplace_tpu_torch.ops.jacobi_kernels import SMEM_MAX_M
+
+    ranked = sorted(new_shapes, key=lambda sh: -gate_shapes[sh])
+    top = ranked[:3] + [sh for sh in ranked[3:] if sh[0] > SMEM_MAX_M][:1]
+    k2_times = phase_k2_timing(
+        smi, [(m, B, kind == "c64", sw) for m, B, kind, sw in top])
+    mark("timing")
     phase_trace(dev)
+    mark("QFT trace")
+    phase_gate_trace(dev)
+    mark("gate trace")
     # K2's line: its most launched shape on the QFT path (the build's
-    # two-site polish, m = 24); every shape's numbers are logged above
+    # two-site polish, m = 24); every shape's numbers are logged above,
+    # the gate path's in "gate_shapes"
     k2 = k2_times[0]
     log(json.dumps({"kernels": [{
         "name": "coefficient_batch_k1",
@@ -829,6 +1190,12 @@ def main():
                                        "alone_ms", "prepass_ms",
                                        "padded_work_ms", "live_share",
                                        "max_abs_err")},
+        "launches_gate_pole": pole_counts["k1"],
+        "launches_gate_n30": n30_counts["k1"],
+        "gate": {k: k1_gate[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "alone_ms", "prepass_ms",
+                                        "padded_work_ms", "live_share",
+                                        "max_abs_err")},
     }, {
         "name": "jacobi_eigh_k2",
         "route": "cuda",
@@ -843,6 +1210,13 @@ def main():
         "library_ms": k2["library_ms"],
         "shape": k2["shape"],
         "qft_max_err_rel_peak": qft_err,
+        "launches_gate": {"pole_n20": pole_counts["k2"],
+                          "dt_n20": dt_counts["k2"],
+                          "zt_n30": n30_counts["k2"]},
+        "gate_shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                           "library_ms", "bound_ms",
+                                           "bound_by")}
+                        for r in k2_times[4:]],
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Static-shape MPO containers.
 
-Counterpart of ``qilaplace_tpu/core/mpo.py`` (containers, ``mpo_repad``,
-``max_bond``, ``identity_mpo`` and ``mpo_to_dense``). A core is
+Counterpart of ``qilaplace_tpu/core/mpo.py`` (containers,
+``mpo_from_traced``, ``mpo_repad``, ``max_bond``, ``identity_mpo`` and
+``mpo_to_dense``). A core is
 ``W[l, s_out, s_in, r]``, stacked and zero-padded as ``cores[n, chi, 2, 2,
 chi]`` with int32 ``ranks[n+1]``; ``PairedSiteMPO`` is a thin view of its
 interleaved 2n-site chain.
@@ -90,6 +91,9 @@ class MPO:
         ]
 
 
+SingleSiteMPO = MPO
+
+
 @dataclasses.dataclass
 class PairedSiteMPO:
     """Paired-register MPO = interleaved 2n-site chain view."""
@@ -138,6 +142,24 @@ def mpo_to_dense(W) -> torch.Tensor:
     T = T[..., 0]  # axes: o1, i1, o2, i2, ...
     perm = [2 * i for i in range(n)] + [2 * i + 1 for i in range(n)]
     return T.permute(*perm).reshape(2**n, 2**n)
+
+
+def mpo_from_traced(core_list, chi: int | None = None) -> MPO:
+    """Stack torch cores ``[l_i, 2, 2, r_i]`` into a padded MPO on their
+    device (the gate builders make their cores there, parameterized by the
+    damping wr); ranks come from the shapes."""
+    ranks = [1] + [int(c.shape[3]) for c in core_list]
+    if core_list[0].shape[0] != 1 or core_list[-1].shape[3] != 1:
+        raise ValueError("edge cores must have boundary bond dimension 1")
+    if chi is None:
+        chi = bucket_for(max(ranks))
+    first = core_list[0]
+    cores = first.new_zeros(len(core_list), chi, 2, 2, chi)
+    for i, c in enumerate(core_list):
+        cores[i, : c.shape[0], :, :, : c.shape[3]] = c
+    return MPO(cores=cores,
+               ranks=torch.tensor(ranks, dtype=torch.int32,
+                                  device=first.device))
 
 
 def mpo_repad(W, chi_new: int):

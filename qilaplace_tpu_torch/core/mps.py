@@ -1,6 +1,7 @@
 """Static-shape MPS containers.
 
-Counterpart of ``qilaplace_tpu/core/mps.py``: containers, ``validate``,
+Counterpart of ``qilaplace_tpu/core/mps.py``: containers and their
+index helpers (``siteindices``, ``bondindices``, ``nsite``), ``validate``,
 ``repad``, the coefficient readouts, the dense readout and norm, and the
 canonicalizing and compressing sweeps (``lax.scan`` there, Python loops
 here; truncation is mask-based, ops/truncation.py).
@@ -104,6 +105,10 @@ class MPS:
         return [cores[i, : ranks[i], :, : ranks[i + 1]] for i in range(self.n)]
 
 
+# SignalMPS is the single-register MPS.
+SignalMPS = MPS
+
+
 @dataclasses.dataclass
 class ZTMPS:
     """Paired-register MPS stored as its interleaved 2n-site chain."""
@@ -131,6 +136,33 @@ def _chain(psi) -> MPS:
 
 def _rewrap(psi, chain: MPS):
     return ZTMPS(chain=chain) if isinstance(psi, ZTMPS) else chain
+
+
+def siteindices(psi):
+    """Positional site index lists ``(main, copy)``: chain positions of the
+    main and copy register sites (copy is empty for a single register)."""
+    if isinstance(psi, ZTMPS):
+        n = psi.n
+        return (list(range(0, 2 * n, 2)), list(range(1, 2 * n, 2)))
+    return (list(range(psi.n)), [])
+
+
+def bondindices(psi):
+    """Positional bond index lists ``(main, copy)``: chain bond b sits
+    between chain sites b and b+1."""
+    if isinstance(psi, ZTMPS):
+        n = psi.n
+        return (list(range(1, 2 * n - 1, 2)), list(range(0, 2 * n, 2)))
+    return (list(range(psi.n - 1)), [])
+
+
+def nsite(psi) -> int:
+    """Deprecated alias for ``len(psi)``."""
+    import warnings
+
+    warnings.warn("nsite is deprecated; use len(psi)", DeprecationWarning,
+                  stacklevel=2)
+    return len(psi)
 
 
 def validate(obj, *, atol: float | None = None) -> None:

@@ -1,18 +1,21 @@
-"""Pole-scan API: direct readout grids and the coarse-to-fine pole search.
+"""Pole-scan API: readout grids and the coarse-to-fine pole search.
 
-Counterpart of ``qilaplace_tpu/scan/pole_scan.py`` for the direct route
-(``chi_grid_direct``, ``coarse_to_fine_pole_search(readout="direct")``);
-the apply-then-read route waits for the port of ``chi_grid`` / ``pole_scan``.
+Counterpart of ``qilaplace_tpu/scan/pole_scan.py``. Two readout routes:
+
+* direct (``chi_grid_direct``): ``<config| W |psi>`` per grid point. It
+  routes by width alone, on every device: an effective chain chi_eff =
+  chi_W * chi_psi <= 256 is folded by ``zipper_chain`` and read by kernel
+  K1 (its plain torch version for CPU tensors), wider pairs take the
+  factored ``apply_coefficient_batch``. Both compute the same numbers.
+* apply-then-read (``chi_grid``, ``pole_scan``): the product state
+  ``apply(W, psi)`` is formed once per transform and read at every grid
+  point. A complex64 state on the card with chi <= 256 goes to K1 (the
+  counterpart of the JAX package's "TPU and fits VMEM" Pallas route);
+  every other state takes the plain ``coefficient_batch``.
 
 Coordinate conventions: s(k, l) = (wr k + i wi l) / N, z(k, l) = e^{-s(k, l)},
 chi(k, l) read out at interleaved LSB-first (k, l) bits. ``z_from_kl`` and
 ``kl_from_z`` always compute in float64 (N = 2^n reaches 2^30).
-
-The direct readout routes by width alone, on every device: an effective
-chain chi_eff = chi_W * chi_psi <= 256 is folded by ``zipper_chain`` and
-read by kernel K1 (its plain torch version for CPU tensors), wider pairs
-take the factored ``apply_coefficient_batch``. Both compute the same
-numbers.
 """
 
 from __future__ import annotations
@@ -22,8 +25,12 @@ import math
 
 import torch
 
-from qilaplace_tpu_torch.core.mps import ZTMPS
-from qilaplace_tpu_torch.ops.apply import apply_coefficient_batch, zipper_chain
+from qilaplace_tpu_torch.core.mps import MPS, ZTMPS, coefficient_batch
+from qilaplace_tpu_torch.ops.apply import (
+    apply,
+    apply_coefficient_batch,
+    zipper_chain,
+)
 from qilaplace_tpu_torch.ops.readout_kernels import MAX_CHI, coefficient_batch_k1
 from qilaplace_tpu_torch.transforms.zt import zt_mpo
 from qilaplace_tpu_torch.utils.bits import paired_config_from_kl
@@ -41,17 +48,55 @@ def direct_vals(W, psi, configs) -> torch.Tensor:
     return apply_coefficient_batch(W, psi, configs)
 
 
+def _grid_configs(n: int, ks: torch.Tensor, ls: torch.Tensor):
+    """int32 [len(ks) len(ls), 2n] readout configs of the ks x ls grid."""
+    K, L = torch.meshgrid(ks, ls, indexing="ij")
+    return paired_config_from_kl(K.reshape(-1), L.reshape(-1), n)
+
+
+def _kernel_readout_ok(psi_out) -> bool:
+    """True when K1 reads the state: a complex64 chain on a CUDA device
+    with chi <= MAX_CHI (what the JAX package's Pallas route asks of its
+    TPU: a backend that runs the kernel and a core stack that fits)."""
+    chain = psi_out.chain
+    return (chain.cores.is_cuda and chain.dtype == torch.complex64
+            and chain.chi <= MAX_CHI)
+
+
+def chi_grid(psi_out: ZTMPS, ks, ls, *,
+             use_kernel: bool | None = None) -> torch.Tensor:
+    """Sample chi on the outer product of index vectors ``ks`` x ``ls``
+    from a product state ``psi_out = apply(W, psi)``; returns a
+    [len(ks), len(ls)] complex grid on the state's device.
+
+    ``use_kernel=None`` (default) reads through K1 whenever it takes the
+    state (:func:`_kernel_readout_ok`); True sends it to K1's wrapper (the
+    plain version for a CPU state), False to the plain
+    ``coefficient_batch``."""
+    chain = psi_out.chain
+    device = chain.device
+    ks = torch.as_tensor(ks, dtype=torch.int64, device=device)
+    ls = torch.as_tensor(ls, dtype=torch.int64, device=device)
+    configs = _grid_configs(psi_out.n, ks, ls)
+    if use_kernel is None:
+        use_kernel = _kernel_readout_ok(psi_out)
+    if use_kernel:
+        vals = coefficient_batch_k1(
+            MPS(cores=chain.cores.contiguous(), ranks=chain.ranks,
+                amplitude=chain.amplitude), configs.contiguous())
+    else:
+        vals = coefficient_batch(chain, configs)
+    return vals.reshape(ks.shape[0], ls.shape[0])
+
+
 def chi_grid_direct(W, psi_z: ZTMPS, ks, ls) -> torch.Tensor:
     """Sample chi on ``ks`` x ``ls`` by direct ``<config| W |psi>``
     contraction (no intermediate truncated product state); returns a
     [len(ks), len(ls)] complex grid on psi's device."""
-    n = psi_z.n
     device = psi_z.chain.device
     ks = torch.as_tensor(ks, dtype=torch.int64, device=device)
     ls = torch.as_tensor(ls, dtype=torch.int64, device=device)
-    K, L = torch.meshgrid(ks, ls, indexing="ij")
-    configs = paired_config_from_kl(K.reshape(-1), L.reshape(-1), n)
-    vals = direct_vals(W, psi_z, configs)
+    vals = direct_vals(W, psi_z, _grid_configs(psi_z.n, ks, ls))
     return vals.reshape(ks.shape[0], ls.shape[0])
 
 
@@ -86,6 +131,26 @@ class ScanResult:
     z_peak: torch.Tensor   # z at the peak
     wr: float
     wi: float
+
+
+def _peak(chi: torch.Tensor, ks, ls, n: int, wr, wi) -> ScanResult:
+    """The ScanResult of a sampled grid: its argmax |chi| and z there."""
+    flat = torch.argmax(chi.abs())
+    i, j = flat // chi.shape[1], flat % chi.shape[1]
+    return ScanResult(
+        ks=ks, ls=ls, chi=chi, k_peak=ks[i], l_peak=ls[j],
+        z_peak=z_from_kl(ks[i].cpu(), ls[j].cpu(), n, wr, wi),
+        wr=float(wr), wi=float(wi),
+    )
+
+
+def pole_scan(psi_out: ZTMPS, ks, ls, *, wr, wi=TWO_PI) -> ScanResult:
+    """Evaluate |chi| on a (k, l) grid of a product state and report the
+    peak."""
+    device = psi_out.chain.device
+    ks = torch.as_tensor(ks, dtype=torch.int64, device=device)
+    ls = torch.as_tensor(ls, dtype=torch.int64, device=device)
+    return _peak(chi_grid(psi_out, ks, ls), ks, ls, psi_out.n, wr, wi)
 
 
 @dataclasses.dataclass
@@ -134,6 +199,7 @@ def coarse_to_fine_pole_search(
     superfine_half: int = 24,
     cutoff: float = 1e-12,
     maxdim: int = 128,
+    apply_fused: bool = True,
     readout: str = "auto",
     engine: str = "analytic",
     cache: bool = True,
@@ -147,10 +213,15 @@ def coarse_to_fine_pole_search(
     superfine: stride-1 window of half-width ``superfine_half`` around the
                fine peak, reusing the fine transform.
 
-    ``readout="direct"`` contracts <config| W |psi> per grid point;
-    ``"auto"`` resolves to "direct" for 32-bit states and to "apply" for
-    64-bit ones, as in the JAX package. The "apply" route raises
-    NotImplementedError until ``chi_grid`` / ``pole_scan`` are ported.
+    ``engine`` builds each transform ("analytic": the rail-cross route;
+    "gate": the gate-layer fold); ``cache=True`` loads and saves per-wr
+    operator artifacts. ``readout="direct"`` contracts <config| W |psi>
+    per grid point (roundoff relative to the path product);
+    ``readout="apply"`` forms the product state once per transform
+    (``apply_fused``: the zip-up apply at ``maxdim``/``cutoff``, else the
+    exact apply) and reads it (:func:`pole_scan`), with a floor at
+    eps ||W psi|| / peak. ``"auto"`` resolves to "direct" for 32-bit states
+    and to "apply" for 64-bit ones, as in the JAX package.
     """
     n = psi_z.n
     N = 2**n
@@ -159,28 +230,28 @@ def coarse_to_fine_pole_search(
     dtype = torch.complex128 if wide else torch.complex64
     if readout == "auto":
         readout = "apply" if wide else "direct"
-    if readout != "direct":
-        raise NotImplementedError(
-            f"coarse_to_fine_pole_search: readout {readout!r} needs "
-            "chi_grid / pole_scan (apply, then read the product state), "
-            "which are not ported yet (ROADMAP queue 1)"
+    if readout not in ("direct", "apply"):
+        raise ValueError(
+            f"coarse_to_fine_pole_search: unknown readout {readout!r}; use "
+            "'direct', 'apply' or 'auto'"
         )
-    psi_tight = tighten(psi_z)
+    psi_tight = tighten(psi_z) if readout == "direct" else psi_z
 
     def transform(wr):
-        return tighten(zt_mpo(n, wr, engine=engine, cutoff=cutoff,
-                              maxdim=maxdim, dtype=dtype, cache=cache,
-                              cache_dir=cache_dir, device=device))
+        W = zt_mpo(n, wr, engine=engine, cutoff=cutoff, maxdim=maxdim,
+                   dtype=dtype, cache=cache, cache_dir=cache_dir,
+                   device=device)
+        if readout == "direct":
+            return tighten(W)
+        if apply_fused:
+            return apply(W, psi_z, maxdim=maxdim, cutoff=cutoff)
+        return apply(W, psi_z)
 
-    def scan_one(W, ks, ls, wr):
-        chi = chi_grid_direct(W, psi_tight, ks, ls)
-        flat = torch.argmax(chi.abs())
-        i, j = flat // chi.shape[1], flat % chi.shape[1]
-        return ScanResult(
-            ks=ks, ls=ls, chi=chi, k_peak=ks[i], l_peak=ls[j],
-            z_peak=z_from_kl(ks[i].cpu(), ls[j].cpu(), n, wr, wi),
-            wr=float(wr), wi=float(wi),
-        )
+    def scan_one(state, ks, ls, wr):
+        if readout == "direct":
+            return _peak(chi_grid_direct(state, psi_tight, ks, ls), ks, ls,
+                         n, wr, wi)
+        return pole_scan(state, ks, ls, wr=wr, wi=wi)
 
     def arange(lo, hi, step=1):
         return torch.arange(lo, hi, step, dtype=torch.int64, device=device)
@@ -191,7 +262,7 @@ def coarse_to_fine_pole_search(
     coarse = scan_one(transform(wr_coarse), ks_c, ks_c, wr_coarse)
 
     # --- fine: re-center the coarse peak in the wr_fine coordinates ---
-    W_f = transform(wr_fine)
+    state_f = transform(wr_fine)
     k_c, l_c = kl_from_z(coarse.z_peak, n, wr_fine, wi)
     k_c, l_c = k_c.to(device), l_c.to(device)
     half_k = max(1, int(round(stride_c * wr_coarse / wr_fine)))
@@ -200,12 +271,12 @@ def coarse_to_fine_pole_search(
     stride_fl = max(1, (2 * half_l) // fine_points)
     ks_f = torch.clamp(k_c + arange(-half_k, half_k + 1, stride_fk), 0, N - 1)
     ls_f = torch.remainder(l_c + arange(-half_l, half_l + 1, stride_fl), N)
-    fine = scan_one(W_f, ks_f, ls_f, wr_fine)
+    fine = scan_one(state_f, ks_f, ls_f, wr_fine)
 
     # --- superfine: stride-1 zoom around the fine peak ---
     h = superfine_half
     ks_s = torch.clamp(fine.k_peak + arange(-h, h + 1), 0, N - 1)
     ls_s = torch.remainder(fine.l_peak + arange(-h, h + 1), N)
-    superfine = scan_one(W_f, ks_s, ls_s, wr_fine)
+    superfine = scan_one(state_f, ks_s, ls_s, wr_fine)
 
     return PoleSearchResult(coarse=coarse, fine=fine, superfine=superfine)

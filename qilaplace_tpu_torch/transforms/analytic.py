@@ -7,7 +7,8 @@ exactly: the rail kernels, ``cross_tt`` with its LU seed and maxvol
 pivots, the validate-and-retry rail crosses, the exact Schmidt-product
 compression and its guards. Only the assembly of the interleaved cores
 from a factor pack (:func:`assemble_product_cores`) runs in torch, on the
-target device.
+target device; the zT, DT and QFT operators are cast on the host and
+placed on it.
 
 The zT operator acting on the paired-register state sum_j x_j |j>|j> is
 the tensor product of two single-register kernels,
@@ -79,6 +80,19 @@ def zt_kernel(n: int, wr: float):
             * _damp_kernel(k, jm, wr, n)
             * _phase_kernel(l, jc, n)
         )
+
+    return f
+
+
+def dt_kernel(n: int, wr: float):
+    """Paired DT: D on the main rail, identity on the copy rail."""
+    scale = 1.0 / np.sqrt(float(1 << n))
+
+    def f(cfg: np.ndarray) -> np.ndarray:
+        k, jm = _rail_values(cfg, n, 2, 0)
+        copy = cfg[:, 1::2]
+        eye = np.all((copy >> 1) == (copy & 1), axis=1)
+        return scale * _damp_kernel(k, jm, wr, n) * eye.astype(np.float64)
 
     return f
 
@@ -427,6 +441,33 @@ def _cross_rail(f, n: int, *, maxdim: int, tol: float, tag: str,
         except RuntimeError as e:  # escalate
             last = e
     raise RuntimeError(f"{tag}: rail cross failed after escalation: {last}")
+
+
+def _identity_rail(n: int):
+    """Rank-1 identity rail cores (value = 2*s_out + s_in: diagonal on
+    {0, 3})."""
+    c = np.zeros((1, 4, 1), dtype=np.complex128)
+    c[0, 0, 0] = 1.0
+    c[0, 3, 0] = 1.0
+    return [c] * n
+
+
+def _interleave_rails(main_cores, copy_cores):
+    """EXACT interleave of two single-rail TTs onto the 2n chain
+    (main_0, copy_0, main_1, copy_1, ...). Combined bond before main_s is
+    (a_s, b_s) flattened a-major; main_s acts as D_s x I_{b_s}, copy_s as
+    I_{a_{s+1}} x Q_s. No approximation: ranks multiply (<= r_D * r_Q)
+    and one compression pass restores the joint plateau."""
+    out = []
+    for D, Q in zip(main_cores, copy_cores):
+        a, d, a2 = D.shape
+        b, _, b2 = Q.shape
+        m = np.einsum("lvr,bc->lbvrc", D, np.eye(b)).reshape(a * b, d, a2 * b)
+        c = np.einsum("ac,lvr->alvcr", np.eye(a2), Q).reshape(
+            a2 * b, d, a2 * b2
+        )
+        out.extend([m, c])
+    return out
 
 
 def _compress_host(cores, cutoff: float, maxdim: int):
@@ -920,3 +961,63 @@ def mpo_from_pack(pack: dict, *, device, dtype: torch.dtype = torch.complex64
                      "mid_len", "ranks")]
     cores = assemble_product_cores(*rails, *idx[:6])
     return PairedSiteMPO(chain=MPO(cores=cores, ranks=idx[6]))
+
+
+def analytic_dt_mpo(
+    n: int,
+    wr: float,
+    *,
+    cutoff: float = 1e-12,
+    maxdim: int = 64,
+    chi: int | None = None,
+    dtype: torch.dtype = torch.complex64,
+    seed: int = 7,
+    validate_tol: float | None = None,
+    device=None,
+) -> PairedSiteMPO:
+    """Paired damping-transform MPO from the closed-form kernel (damping
+    rail cross on main, the exact rank-1 identity on the copy rail), cast
+    to ``dtype`` on the host and placed on ``device`` (the card unless told
+    otherwise)."""
+    device = resolve_device(device)
+    dmain_x = _cross_rail(
+        damp_rail_kernel(n, float(wr)), n, maxdim=max(64, maxdim),
+        tol=_rail_tol(cutoff), tag="analytic_dt/damp", seed=seed,
+    )
+    ident = _identity_rail(n)
+    cores, frob, capped = _product_compress(dmain_x, ident, cutoff, maxdim)
+    _guard_product(
+        frob, capped, dmain_x, ident, cores,
+        n_bonds=2 * n - 1, cutoff=cutoff, tag="analytic_dt",
+    )
+    _validate_cross(
+        dt_kernel(n, float(wr)), cores, 2 * n, True, seed,
+        _auto_tol(validate_tol, cutoff, 2 * n), "analytic_dt",
+        mask_rel=1e-2,
+    )
+    return PairedSiteMPO(chain=_as_mpo(cores, chi, dtype, device))
+
+
+def analytic_qft_mpo(
+    n: int,
+    *,
+    cutoff: float = 1e-12,
+    maxdim: int = 48,
+    chi: int | None = None,
+    dtype: torch.dtype = torch.complex64,
+    seed: int = 7,
+    validate_tol: float = 1e-8,
+    device=None,
+) -> MPO:
+    """Single-register QFT MPO from the closed-form kernel, with the
+    bitwise output convention of ``build_qft_mpo`` (bit-reversed outputs),
+    cast to ``dtype`` on the host and placed on ``device``."""
+    device = resolve_device(device)
+    cores = _compress_host(
+        _cross_rail(
+            qft_kernel(n), n, maxdim=maxdim,
+            tol=min(validate_tol, 1e-10), tag="analytic_qft", seed=seed,
+        ),
+        cutoff, maxdim,
+    )
+    return _as_mpo(cores, chi, dtype, device)

@@ -10,6 +10,7 @@ build readout configurations on a device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,6 +30,25 @@ def int_to_bits(val: int, n: int, *, order: str = "msb") -> list[int]:
     raise ValueError("order must be 'msb' or 'lsb'")
 
 
+def bits_to_int(bits, *, order: str = "msb") -> int:
+    """Inverse of :func:`int_to_bits`."""
+    if order == "msb":
+        seq = bits
+    elif order == "lsb":
+        seq = list(bits)[::-1]
+    else:
+        raise ValueError("order must be 'msb' or 'lsb'")
+    val = 0
+    for b in seq:
+        val = (val << 1) | (int(b) & 1)
+    return val
+
+
+def bit_reverse(val: int, n: int) -> int:
+    """Reverse the n-bit representation of ``val``."""
+    return bits_to_int(int_to_bits(val, n, order="lsb"), order="msb")
+
+
 def interleave_bits(main_bits, copy_bits) -> list[int]:
     """[m1, c1, m2, c2, ...] interleaving for the paired 2n-site register."""
     if len(main_bits) != len(copy_bits):
@@ -37,6 +57,22 @@ def interleave_bits(main_bits, copy_bits) -> list[int]:
     for m, c in zip(main_bits, copy_bits):
         out.extend((int(m), int(c)))
     return out
+
+
+def int_to_paired_bits(val: int, n: int, *, order: str = "msb") -> list[int]:
+    """Interleaved [b1, b1, b2, b2, ...] bits of ``val`` (the |j>|j>
+    configuration)."""
+    b = int_to_bits(val, n, order=order)
+    return interleave_bits(b, b)
+
+
+def bit_reversal_permutation(n: int) -> np.ndarray:
+    """Permutation p with p[j] = bit_reverse(j, n); p is an involution."""
+    N = 1 << n
+    p = np.zeros(N, dtype=np.int64)
+    for j in range(N):
+        p[j] = bit_reverse(j, n)
+    return p
 
 
 # --------------------------------- tensors ---------------------------------

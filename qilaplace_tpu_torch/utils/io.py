@@ -116,17 +116,14 @@ def cached_zt_mpo(
     chi_work: int | None = None,
     cache_dir: str | None = None,
     device=None,
-    engine: str = "analytic",
+    engine: str = "gate",
 ):
     """zT MPO behind the persistent artifact cache, keyed on (engine, n, wr,
     cutoff, maxdim, chi, dtype, chi_work) exactly as the JAX package keys
-    it. Only ``engine="analytic"`` is ported. Returns ``(W, cache_hit)``."""
+    it. ``engine``: "gate" (the gate-layer fold, transforms/zt.py) or
+    "analytic" (the rail-cross builder, transforms/analytic.py). Returns
+    ``(W, cache_hit)``."""
     device = resolve_device(device)
-    if engine != "analytic":
-        raise NotImplementedError(
-            f"cached_zt_mpo: engine {engine!r} is not ported yet "
-            "(ROADMAP queue 1, item 12: gates + gate builders)"
-        )
     name = (
         f"zt_{engine}_n{n}_wr{float(wr):.12g}_c{float(cutoff):.6g}"
         f"_m{int(maxdim)}_chi{0 if chi is None else int(chi)}"
@@ -135,10 +132,20 @@ def cached_zt_mpo(
     )
 
     def build():
-        from qilaplace_tpu_torch.transforms.analytic import analytic_zt_mpo
+        if engine == "analytic":
+            from qilaplace_tpu_torch.transforms.analytic import analytic_zt_mpo
 
-        return analytic_zt_mpo(n, wr, cutoff=cutoff, maxdim=maxdim, chi=chi,
-                               dtype=dtype, device=device)
+            return analytic_zt_mpo(n, wr, cutoff=cutoff, maxdim=maxdim,
+                                   chi=chi, dtype=dtype, device=device)
+        if engine == "gate":
+            from qilaplace_tpu_torch.transforms.zt import build_zt_mpo
+
+            return build_zt_mpo(n, wr, cutoff=cutoff, maxdim=maxdim, chi=chi,
+                                dtype=dtype, chi_work=chi_work, device=device)
+        raise ValueError(
+            f"cached_zt_mpo: unknown engine {engine!r}; "
+            "use 'analytic' or 'gate'"
+        )
 
     return cached_mpo(name, build, cache_dir=cache_dir, device=device)
 

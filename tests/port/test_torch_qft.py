@@ -24,6 +24,7 @@ from qilaplace_tpu.models.pipelines import QFTPipeline as JQFTPipeline
 import qilaplace_tpu.ops.complexlinalg as jcl
 import qilaplace_tpu_torch as qt
 import qilaplace_tpu_torch.ops.complexlinalg as tcl
+from qilaplace_tpu_torch.circuits import dt_gates, zt_gates
 from qilaplace_tpu_torch.circuits import qft_gates as tg
 from qilaplace_tpu_torch.ops.truncation import sketch_matrix
 from qilaplace_tpu_torch.utils import interop, io
@@ -154,6 +155,19 @@ ENTRY_POINTS = {
     "mpo_from_numpy": lambda: interop.mpo_from_numpy(
         np.ones((1, 1, 2, 2, 1)), [1, 1]),
     "sketch_matrix": lambda: sketch_matrix(1, 4, 2, torch.float32),
+    "DTPipeline": lambda: qt.DTPipeline(3, 1.0),
+    "build_dt_mpo": lambda: qt.build_dt_mpo(3, 1.0),
+    "build_paired_qft_mpo": lambda: qt.build_paired_qft_mpo(3),
+    "build_zt_mpo": lambda: qt.build_zt_mpo(3, 1.0),
+    "zt_mpo(engine='gate')": lambda: qt.zt_mpo(3, 1.0, engine="gate",
+                                               cache=False),
+    "analytic_dt_mpo": lambda: qt.analytic_dt_mpo(4, 1.0),
+    "analytic_qft_mpo": lambda: qt.analytic_qft_mpo(4),
+    "dampedH": lambda: dt_gates.dampedH(1.0),
+    "control_damping_mpo": lambda: dt_gates.control_damping_mpo(3, 2, 1.0),
+    "control_damping_copy_mpo": lambda: dt_gates.control_damping_copy_mpo(
+        3, 2, 1.0),
+    "control_Hphase_ztmps_mpo": lambda: zt_gates.control_Hphase_ztmps_mpo(2),
 }
 
 

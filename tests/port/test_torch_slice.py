@@ -11,7 +11,6 @@ import functools
 import os
 
 import numpy as np
-import pytest
 import torch
 
 import qilaplace_tpu as qj
@@ -127,9 +126,18 @@ def test_pole_search_direct_matches_jax(tmp_path):
 
 
 def test_apply_readout_not_ported_yet():
+    """The routes this test once found missing (the apply-then-read pole
+    search and the gate engine) now return results: ``readout="auto"`` on
+    a 64-bit state takes the apply route, and ``zt_mpo(engine="gate")``
+    builds the gate-folded operator."""
     psi = qt.tighten(qt.signal_ztmps_cross(sin_decay(4), cutoff=1e-12,
                                            device="cpu"))
-    with pytest.raises(NotImplementedError, match="apply"):
-        qt.coarse_to_fine_pole_search(psi, readout="auto", cache=False)
-    with pytest.raises(NotImplementedError, match="gate"):
-        qt.zt_mpo(4, 0.5, engine="gate", device="cpu")
+    assert psi.chain.cores.element_size() >= 8
+    res = qt.coarse_to_fine_pole_search(psi, readout="auto", cache=False,
+                                        coarse_points=8, fine_points=8,
+                                        superfine_half=2, maxdim=32)
+    assert res.superfine.chi.shape == (5, 5)
+    assert bool(torch.isfinite(torch.view_as_real(res.superfine.chi)).all())
+    W = qt.zt_mpo(4, 0.5, engine="gate", cutoff=1e-9, cache=False,
+                  device="cpu")
+    assert isinstance(W, qt.PairedSiteMPO) and W.chain.n == 8
