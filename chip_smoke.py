@@ -21,14 +21,29 @@ checks them:
              seeded Hermitian inputs: the QFT path's shapes at
              its sweep counts (c64 m = 24, 40, 80; f32 m = 56, B = 1 and 8),
              the route's edges at default sweeps (m = 2, 84 = the largest
-             shared-memory m, 86, 256, 512; B = 4), a clustered spectrum
-             (default and 12 sweeps) and a zero-padded input. Eigenvalues
+             shared-memory m, 86 = the smallest on a cluster, 256, 320 =
+             the largest on a cluster, 322, 512; B = 4), the cluster
+             variant's largest complex64 solve below cutoff 1e-10 (m = 288,
+             B = 1, 7 sweeps) and its real variant (f32 m = 160, 6 sweeps),
+             a clustered spectrum
+             (default and 12 sweeps) and a zero-padded input; then the
+             cluster variant with more clusters than the card holds at once
+             (c64 m = 160 and 288, B = 132, 7 sweeps, 3 launches each):
+             eigenvalues bit-identical to the plain version in every run,
+             V equal in every run. Eigenvalues
              against the plain version within jacobi_kernels.tolerance
              (1e-5, 5e-5 from m = 256); V^H V - I, the residual and the
              eigenvalues against float64 eigh within the same bar, or
              twice the plain version's own figure on the same input where
              that is larger (jacobi_kernels.rounding_bar; both figures are
              logged);
+4b. readout  the readout routes on the card, n = 8: a complex128 state
+             through chi_grid_direct, ZTPipeline.chi_grid_direct,
+             coarse_to_fine_pole_search(readout="direct") and
+             QFTPipeline.spectrum, and chi = 264 chains (complex128 and
+             complex64) through spectrum, each against the same call on the
+             CPU (1e-10 relative; the complex64 chain against the CPU's
+             complex128 read, 1e-5); K1 must not launch;
 5. zT path n=30: cross encode of the sin_decay signal, analytic build of
              the zT factor pack, assembly on the card, direct readout of
              the 4096 scan points (zipper_chain + K1), scored against the
@@ -60,7 +75,11 @@ checks them:
              multiplies all of chi, as K1 did before its pre-pass); K2
              against its plain version and torch.linalg.eigh at the QFT
              path's shapes, CUDA events, in turns, with K2's time per
-             Jacobi round;
+             Jacobi round (and, after the gate phases, at the gate path's
+             shapes: every shape on the cluster variant, 84 < m <= 320,
+             that the gate phases launched, plus c64 m = 288 B = 1 at 7
+             sweeps and f32 m = 160 at 6: the "device_memory" records of
+             K2's line);
 9. trace     torch.profiler (CPU and CUDA activity) over one n=28 QFT
              build and one apply after the timed runs: K2's summed device
              time and launches, all kernels' device time, the stage's wall
@@ -95,8 +114,8 @@ checks them:
              plain version, as in 4, at every (m, B, dtype, sweeps) the
              gate phases launched it with that no earlier path did, K1
              timed on the product chain as in 8, K2 timed at the gate
-             phases' three most launched new shapes and their most
-             launched shape in device memory (m > 84);
+             phases' three most launched new shapes and at the shapes of
+             the cluster variant (see 8);
 13. trace    one n=20 gate build under torch.profiler, as in 9, with
              device activity only.
 
@@ -140,6 +159,11 @@ POLE_BITS = 20       # the reference tutorial's flagship pole search
 POLE_LAM, POLE_W = 1.6e-4, 4.08e-3  # its signal e^{-lam j} sin(w j)
 DT_BITS, DT_CHI, DT_BAR = 20, 64, 0.1
 GRID = 64            # the n=30 gate read: a GRID x GRID chi_grid
+# K2's cluster variant off the gate path at cutoff 1e-9: the largest
+# complex64 solve below cutoff 1e-10 and the real variant, (m, B, complex,
+# sweeps)
+CLUSTER_SHAPES = ((288, 1, True, 7), (160, 1, False, 6))
+ROUTE_BITS = 8       # the readout-routes phase
 PEAK_FP32 = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s
 
@@ -555,7 +579,10 @@ def k2_case(name, H, sweeps):
 
 def phase_k2_check(dev):
     from qilaplace_tpu_torch.ops.jacobi import default_sweeps, fast_sweeps
-    from qilaplace_tpu_torch.ops.jacobi_kernels import SMEM_MAX_M
+    from qilaplace_tpu_torch.ops.jacobi_kernels import (
+        CLUSTER_MAX_M,
+        SMEM_MAX_M,
+    )
 
     rng = np.random.default_rng(2026)
     cases = [(f"c64 m={m} B=1 sweeps={sw}", hermitian(rng, 1, m), sw)
@@ -565,7 +592,11 @@ def phase_k2_check(dev):
               for B in (1, 8)]
     cases += [(f"c64 m={m} B=4 default sweeps", hermitian(rng, 4, m),
                default_sweeps(m))
-              for m in (2, SMEM_MAX_M, SMEM_MAX_M + 2, 256, 512)]
+              for m in (2, SMEM_MAX_M, SMEM_MAX_M + 2, 256, CLUSTER_MAX_M,
+                        CLUSTER_MAX_M + 2, 512)]
+    cases += [(f"{'c64' if cplx else 'f32'} m={m} B={B} sweeps={sw}",
+               hermitian(rng, B, m, complex_=cplx), sw)
+              for m, B, cplx, sw in CLUSTER_SHAPES]
     # clusters converge more slowly: at default sweeps the plain version's
     # own residual stays above 1e-5 (logged beside the kernel's), at 12 both
     # are converged
@@ -579,6 +610,37 @@ def phase_k2_check(dev):
                for name, H, sweeps in cases)
 
 
+def phase_k2_cluster_stress(dev, repeats=3):
+    """K2's cluster variant with more clusters than the card holds at once
+    (B = 132 at m = 160 and 288, 7 sweeps, 8 blocks a matrix), launched
+    ``repeats`` times: every run's eigenvalues must equal the plain
+    version's bit for bit, and every run's V the first run's. A maker that
+    read a column across a block edge before its store landed would show
+    as a run that differs. Returns the eigenvalues' max abs error (0)."""
+    from qilaplace_tpu_torch.ops import jacobi_kernels as jk
+
+    rng = np.random.default_rng(2028)
+    worst = 0.0
+    for m in (160, 288):
+        H = torch.from_numpy(hermitian(rng, 132, m)).to(dev)
+        lam_p, _ = jk.jacobi_eigh_k2_reference(H, sweeps=7)
+        V0 = None
+        for run in range(repeats):
+            lam, V = jk.jacobi_eigh_k2(H, sweeps=7)
+            torch.cuda.synchronize()
+            V0 = V if V0 is None else V0
+            same = float((lam == lam_p).double().mean())
+            worst = max(worst, float((lam - lam_p).abs().max()))
+            log(f"[k2] stress c64 m={m} B=132 sweeps=7, run {run}: lam "
+                f"bit-identical to plain {same:.1%}, V equal to run 0: "
+                f"{bool(torch.equal(V, V0))}")
+            check(same == 1.0, f"K2 stress m={m} run {run}: eigenvalues "
+                  "differ from the plain version")
+            check(torch.equal(V, V0), f"K2 stress m={m} run {run}: V differs "
+                  "from run 0")
+    return worst
+
+
 def phase_k2_path_shapes(dev, shapes):
     """K2 against its plain version at every (m, B, dtype, sweeps) the QFT
     path launched it with."""
@@ -589,6 +651,80 @@ def phase_k2_path_shapes(dev, shapes):
         worst = max(worst, k2_case(f"path {kind} m={m} B={B} sweeps={sweeps}",
                                    torch.from_numpy(H).to(dev), sweeps))
     return worst
+
+
+def phase_readout_routes(dev):
+    """A complex128 state through the four entry points that read it
+    directly, and chi = 264 chains through QFTPipeline.spectrum, on the
+    card against the same call on the CPU: none of them may launch K1
+    (k1_takes: complex64 and chi <= 256 only)."""
+    import qilaplace_tpu_torch as qt
+    from qilaplace_tpu_torch.ops import readout_kernels as rk
+
+    n = ROUTE_BITS
+    rng = np.random.default_rng(8)
+    ks = torch.from_numpy(rng.integers(0, 2**n, 12))
+    ls = torch.from_numpy(rng.integers(0, 2**n, 10))
+    psi = qt.tighten(qt.signal_ztmps_cross(sin_decay_fn(n), cutoff=CUTOFF,
+                                           device="cpu"))  # float64
+    pack = qt.zt_product_pack(n, WR, cutoff=CUTOFF, maxdim=CHI)
+
+    def operator(device):
+        return qt.tighten(qt.mpo_from_pack(pack, device=device,
+                                           dtype=torch.complex128))
+
+    def rel(got, want):
+        got = got.cpu().to(torch.complex128)
+        return float((got - want).abs().max() / want.abs().max())
+
+    qft = qt.QFTPipeline(n, chi=16, cutoff=CUTOFF, dtype=torch.complex128,
+                         device="cpu")
+    qft_out = qft.forward(qft.encode(qt.generate_signal(
+        n, dtype=torch.float64, device="cpu")))
+    freqs = torch.arange(0, 2**n, 3)
+    wide = port_helpers().random_chain(np.random.default_rng(264), n, 264,
+                                       "cpu", amplitude=1.5)
+    search = dict(coarse_points=32, fine_points=16, superfine_half=4,
+                  readout="direct")
+    with tempfile.TemporaryDirectory() as cache_dir:
+        pipe = dict(chi=CHI, dtype=torch.complex128, cache_dir=cache_dir)
+        calls = {
+            "chi_grid_direct c128": lambda d: qt.chi_grid_direct(
+                operator(d), psi.to(d), ks.to(d), ls.to(d)),
+            "ZTPipeline.chi_grid_direct c128": lambda d: qt.ZTPipeline(
+                n, device=d, **pipe).chi_grid_direct(
+                    psi.to(d), ks.to(d), ls.to(d), wr=WR),
+            "coarse_to_fine_pole_search(readout='direct') c128":
+                lambda d: qt.coarse_to_fine_pole_search(
+                    psi.to(d), cache_dir=cache_dir, **search).superfine.chi,
+            "QFTPipeline.spectrum c128": lambda d: qft.spectrum(
+                qft_out.to(d), freqs.to(d)),
+            "QFTPipeline.spectrum c128 chi 264": lambda d: qft.spectrum(
+                wide.to(d, torch.complex128), freqs.to(d)),
+        }
+        for name, call in calls.items():
+            want = call("cpu")
+            before = rk.coefficient_batch_k1.launches
+            got, secs = synced(lambda: call(dev))
+            err = rel(got, want)
+            log(f"[routes] {name}: card vs CPU rel {err:.3e} (bar 1e-10), "
+                f"{got.dtype} on {got.device}, K1 launches "
+                f"{rk.coefficient_batch_k1.launches - before}, {secs:.3f} s")
+            check(got.is_cuda and got.dtype == torch.complex128,
+                  f"{name}: not a complex128 result on the card")
+            check(rk.coefficient_batch_k1.launches == before,
+                  f"{name}: launched K1")
+            check(err <= 1e-10, f"{name}: card and CPU differ ({err:.3e})")
+        want = qft.spectrum(wide.to(dtype=torch.complex128), freqs)
+        before = rk.coefficient_batch_k1.launches
+        got = qft.spectrum(wide.to(dev), freqs.to(dev))
+        err = rel(got, want)
+        log(f"[routes] QFTPipeline.spectrum c64 chi 264: card vs CPU c128 "
+            f"rel {err:.3e} (bar {K1_TOL:g}), K1 launches "
+            f"{rk.coefficient_batch_k1.launches - before}")
+        check(rk.coefficient_batch_k1.launches == before,
+              "spectrum of a chi 264 chain launched K1")
+        check(err <= K1_TOL, f"spectrum c64 chi 264: {err:.3e}")
 
 
 def phase_k2_timing(smi, extra=()):
@@ -604,7 +740,9 @@ def phase_k2_timing(smi, extra=()):
     rng = np.random.default_rng(7)
     shapes = [(24, 1, True, 5), (40, 1, True, fast_sweeps(40)),
               (80, 1, True, fast_sweeps(80)), (56, 8, False, fast_sweeps(56))]
-    shapes += [sh for sh in extra if sh not in shapes]
+    for sh in extra:
+        if sh not in shapes:
+            shapes.append(sh)
     out = []
     for m, B, cplx, sweeps in shapes:
         H = torch.from_numpy(hermitian(rng, B, m, complex_=cplx)).to("cuda")
@@ -628,11 +766,13 @@ def phase_k2_timing(smi, extra=()):
         elem = 8 if cplx else 4
         nbytes = B * (m * m * elem + m * 4 + m * m * elem)
         bound_ms, bound_by = bound(flops, nbytes)
+        per_round = {k: 1e3 * v / rounds for k, v in med.items()}  # us
         rec = dict(shape=f"{'c64' if cplx else 'f32'} m={m} B={B} "
-                   f"sweeps={sweeps}", ms=med["kernel"],
+                   f"sweeps={sweeps}", key=(m, B, "c64" if cplx else "f32",
+                                            sweeps),
+                   ms=med["kernel"], us_a_round=per_round["kernel"],
                    plain_ms=med["plain"], library_ms=med["library"],
                    bound_ms=bound_ms, bound_by=bound_by)
-        per_round = {k: 1e3 * v / rounds for k, v in med.items()}  # us
         log(f"[time] K2 {rec['shape']} ({rounds} rounds): kernel "
             f"{rec['ms']:.4f} ms ({per_round['kernel']:.3f} us a round), "
             f"plain {rec['plain_ms']:.3f} ms ({per_round['plain']:.1f} us a "
@@ -1040,9 +1180,9 @@ def device_busy(prof, wall_s):
             continue
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
-        if "jacobi_eigh_kernel" in e.name:
+        if "jacobi_" in e.name:  # K2: one block, or a cluster and V's pass
             k2_us += t1 - t0
-            k2_n += 1
+            k2_n += "jacobi_vectors_kernel" not in e.name
     if not spans:
         return None
     spans.sort()
@@ -1111,8 +1251,10 @@ def main():
     ks, ls, cfg_np = scan_samples(N_BITS)
     configs = torch.from_numpy(cfg_np).to(dev)
     phase_k1_check(dev, configs)
-    k2_err = phase_k2_check(dev)
+    k2_err = max(phase_k2_check(dev), phase_k2_cluster_stress(dev))
     mark("K1 and K2 checks")
+    phase_readout_routes(dev)
+    mark("readout routes")
 
     coefficient_batch_k1.launches = 0
     jacobi_eigh_k2.launches = 0
@@ -1152,14 +1294,22 @@ def main():
     k1 = phase_timing(chain, configs, smi, "zT chain")
     k1_qft = phase_timing(*qft_read, smi, f"QFT n={QFT_BITS} readout chain")
     k1_gate = phase_timing(*n30_read, smi, "n=30 gate product chain")
-    # K2 timed at the gate phases' three most launched new shapes and at
-    # their most launched shape in device memory (m > SMEM_MAX_M)
-    from qilaplace_tpu_torch.ops.jacobi_kernels import SMEM_MAX_M
+    # K2 timed at the gate phases' three most launched new shapes, at every
+    # shape of theirs on the cluster variant and at CLUSTER_SHAPES
+    from qilaplace_tpu_torch.ops.jacobi_kernels import (
+        CLUSTER_MAX_M,
+        SMEM_MAX_M,
+    )
 
     ranked = sorted(new_shapes, key=lambda sh: -gate_shapes[sh])
-    top = ranked[:3] + [sh for sh in ranked[3:] if sh[0] > SMEM_MAX_M][:1]
+    cluster = sorted(sh for sh in gate_shapes
+                     if SMEM_MAX_M < sh[0] <= CLUSTER_MAX_M)
+    top = ranked[:3] + [sh for sh in cluster if sh not in ranked[:3]]
     k2_times = phase_k2_timing(
-        smi, [(m, B, kind == "c64", sw) for m, B, kind, sw in top])
+        smi, [(m, B, kind == "c64", sw) for m, B, kind, sw in top]
+        + list(CLUSTER_SHAPES))
+    device_memory = [dict(r, launches=gate_shapes.get(r["key"], 0))
+                     for r in k2_times if SMEM_MAX_M < r["key"][0]]
     mark("timing")
     phase_trace(dev)
     mark("QFT trace")
@@ -1217,6 +1367,9 @@ def main():
                                            "library_ms", "bound_ms",
                                            "bound_by")}
                         for r in k2_times[4:]],
+        "device_memory": [{k: r[k] for k in (
+            "shape", "launches", "ms", "us_a_round", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")} for r in device_memory],
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

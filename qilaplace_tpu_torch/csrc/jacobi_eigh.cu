@@ -12,15 +12,15 @@
 // eigenvalues ascending and V with its columns in the same order.
 //
 // What bounds it on an H100: a round is O(m^2) work (30 m^2 flops complex,
-// 9 m^2 real), but the rounds form a dependent chain on the one SM that holds
-// the matrix: 115 / 234 / 474 rounds at the QFT path's m = 24 / 40 / 80, at
-// B = 1. A round's latency bounds the kernel, hundreds of times above its
-// flop bound: the chain of sqrt and division that makes a rotation, the
-// shared-memory traffic of the O(m^2) update (at m = 80 about 200 KB a round
-// through the SM's 128 bytes a cycle) and the barrier. A batch fills more SMs
-// (one block per matrix).
+// 9 m^2 real), but the rounds form a dependent chain: 115 / 234 / 474 rounds
+// at the QFT path's m = 24 / 40 / 80, 1,113 at the gate path's m = 160 (7
+// sweeps), at B = 1. A round's latency bounds the kernel, hundreds of times
+// above its flop bound: the chain of sqrt and division that makes a
+// rotation, the shared-memory traffic of the O(m^2) update through an SM's
+// 128 bytes a cycle (at m = 80 about 200 KB a round for G and V; at m = 160
+// 410 KB for G alone) and the barrier. A batch fills more SMs.
 //
-// Design against that latency:
+// Common to every variant:
 //  * pair-adjacent positions, as the plain version keeps them: pair i sits at
 //    positions (2i, 2i+1) in every round, and the round writes its output at
 //    the next round's positions, p -> dst[p] (the inverse of the tournament
@@ -33,40 +33,89 @@
 //    apart, neighbouring pairs neighbouring slots, and the tournament's moves
 //    (2K -> 2K+2, 2K+1 -> 2K-1 inside the list) become shifts by one slot, so
 //    a warp's loads and stores are each one dense run: no bank conflicts;
-//  * one barrier a round: G and V are double-buffered, and the round also
+//  * one synchronisation a round: G is double-buffered, and the round also
 //    makes the NEXT round's rotations: warps of their own, one thread a
 //    pair, rebuild the pair's next diagonal block from G_r and this round's
 //    rotations (three entries of J^H G_r J, by the same arithmetic as the
 //    update) and run the rotation's chain of sqrt and division while the
-//    other warps update G and V. The one __syncthreads at the end of the
-//    round publishes G_{r+1}, V_{r+1} and the rotations together (a
-//    double-buffered table);
-//  * no division in the round: thread (K, y) (tid = y c + K) owns column pair
-//    K and row pairs y, y + Y, ...; its destinations are computed once. Up to
-//    1,024 threads: m = 80 is 40 x 20 threads, two row pairs each, and two
-//    warps of rotation makers;
+//    other warps update G. The end of the round (a block barrier, or the
+//    cluster's exchange below) publishes G_{r+1} and the rotations together
+//    (a double-buffered table);
+//  * no division in the round: thread (K, y) owns column pair K and row pairs
+//    y, y + Y, ...; its destinations are computed once;
 //  * a real variant (the template's element type): float32 input stays real,
-//    9 m^2 flops a round and half the shared memory;
+//    9 m^2 flops a round and half the memory;
 //  * the same numbers as the plain version: the rotation with IEEE sqrtf and
 //    division (no fast math), each product and sum rounded as
 //    _pair_rotations rounds it, and each entry of J^H G J and V J summed as
 //    the plain version's matrix products sum it (k ascending: the first
-//    nonzero term rounded, the second fused onto it). On the card the kernel
-//    then reproduces its plain version bit for bit;
-//  * the double-buffered G and V (32 m^2 bytes complex) live in dynamic
-//    shared memory up to m = SMEM_MAX_M = 84 (225,792 of the 232,448 bytes a
-//    block may opt in to, plus 2,352 bytes of tables); above, the same code
-//    runs on buffers in device memory (scratch from the wrapper; 8 MiB at
-//    m = 512, L2-resident).
+//    nonzero term rounded, the second fused onto it). Splitting the work
+//    changes who computes an entry, never how: on the card every variant
+//    reproduces the plain version bit for bit.
+//
+// Three variants, by m:
+//  * m <= SMEM_MAX_M = 84: one block a matrix holds G and V, both
+//    double-buffered (32 m^2 bytes complex), in dynamic shared memory
+//    (225,792 of the 232,448 bytes a block may opt in to at m = 84), and
+//    updates V beside G in the same round. Up to 1,024 threads: m = 80 is
+//    40 x 20 threads, two row pairs each, and two warps of rotation makers;
+//  * SMEM_MAX_M < m <= CLUSTER_MAX_M = 320: G alone, double-buffered, in
+//    the distributed shared memory of a cluster of nb <= 8 blocks (one
+//    cluster a matrix). Block k owns the column pairs [k w, (k+1) w) (about
+//    PAIRS_PER_BLOCK of them, at most MAX_CLUSTER blocks), both slots of
+//    each pair, in all m rows: a cluster of 8 at m = 160 (51,200 bytes of G
+//    a block) and at m = 288 (165,888). The left product (rows p, q of a
+//    pair) and the right product (a pair's two columns) are then local;
+//    only the tournament's one-slot shift at each range's edge (one column
+//    each way) and the makers' reads of diagonal blocks across an edge
+//    reach a neighbour's shared memory. The maker of pair i puts the
+//    rotation into every block's table; it lives in the block that owns
+//    pair i, except where one of the columns it reads crossed an edge in
+//    the last round: then in the block that column crossed into, so that a
+//    block reads in another only what that block wrote itself.
+//    No cluster barrier: that costs 0.7 us on the H100 with the
+//    release/acquire ordering the remote stores need (0.12 us without).
+//    The remote stores are st.async instead, each counting its bytes on the
+//    receiving block's mbarrier; a block waits on its own mbarrier for what
+//    it is owed, after a block barrier for its own stores (see the cluster
+//    kernel for why nothing is overwritten early or read too soon). V
+//    leaves the chain: its
+//    rows never move and V_{r+1} = V_r J_r needs only the rotations, so the
+//    makers also log each round's rotations (c of them, 1,280 bytes at
+//    m = 160) to device memory, and a second kernel applies them to V, a
+//    row a warp (rows are independent: no block barrier a round), with the
+//    log staged through shared memory V_CHUNK rounds at a time. It also
+//    ranks the eigenvalues and writes V in their order. What bounds it,
+//    measured on an H100 (scripts/port/k2_variants.py): at m = 160 a round
+//    takes 1.68 us, about 1.4 us of it in the cluster kernel, where the
+//    update's own share is about 0.29 us and the rotation's chain about
+//    0.22 us; the
+//    rest is the exchange (the makers' reads across an edge, the st.async
+//    of rotations into eight blocks, the wait). The vector pass adds
+//    0.26 us a round, a latency chain of one warp (more SMs do not help).
+//    At m = 288 the update grows to about 0.8 us a round: w = 18 pairs of
+//    144 rows a block;
+//  * m > CLUSTER_MAX_M: the first variant's code on buffers in device memory
+//    (scratch from the wrapper; 8 MiB at m = 512, L2-resident): one block,
+//    G and V streamed through one SM's L2 port every round.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int MAX_M = 512;
 constexpr int SMEM_MAX_M = 84;  // largest m whose G and V buffers fit in shared
+constexpr int CLUSTER_MAX_M = 320;  // largest m whose G a cluster holds
+constexpr int MAX_CLUSTER = 8;      // blocks a cluster (the portable limit)
+constexpr int PAIRS_PER_BLOCK = 10;  // column pairs a cluster block aims at
+constexpr int V_WARPS = 8;   // rows of V a block of the vector pass
+constexpr int V_CHUNK = 16;  // rounds of rotations it stages at a time
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_DEVICES = 64;
+constexpr int SMEM_OPT_IN = 232448;  // dynamic shared memory a block may use
 
 // Element types. left(): rows (p, q) of J^H G in one column; right():
 // columns (0, 1) of X J in one row. Each entry is summed as the plain
@@ -144,16 +193,17 @@ __device__ __forceinline__ Rot<E> rotation(float a, float d, typename E::T w) {
   return r;
 }
 
-// entry (s, t) of J_P^H G[pair P, pair Q] J_Q: what the update writes for it
+// entry (s, t) of J_P^H G[pair P, pair Q] J_Q: what the update writes for it.
+// g points at G[2P, slot Q]; rows are `ld` elements apart and the pair's
+// second column `odd` elements after its first
 template <typename E>
-__device__ __forceinline__ typename E::T entry(const typename E::T* G, int P, int Q, int s,
-                                               int t, const Rot<E>& rP, const Rot<E>& rQ,
-                                               int m, int c) {
+__device__ __forceinline__ typename E::T entry(const typename E::T* g, int ld, int odd,
+                                               int s, int t, const Rot<E>& rP,
+                                               const Rot<E>& rQ) {
   using T = typename E::T;
-  const T* g = G + 2 * P * m + Q;
   T x00, x10, x01, x11, y0, y1;
-  E::left(rP.c, rP.z, g[0], g[m], x00, x10);
-  E::left(rP.c, rP.z, g[c], g[m + c], x01, x11);
+  E::left(rP.c, rP.z, g[0], g[ld], x00, x10);
+  E::left(rP.c, rP.z, g[odd], g[ld + odd], x01, x11);
   if (s) {
     E::right(rQ.c, rQ.z, x10, x11, y0, y1);
   } else {
@@ -232,9 +282,9 @@ jacobi_eigh_kernel(const typename E::T* __restrict__ h_in, float* __restrict__ l
     const Rot<E>* Rc = R + (r & 1) * c;
     if (maker && r + 1 < rounds) {
       const Rot<E> rA = Rc[A], rB = Rc[B];
-      const float d0 = E::re(entry<E>(Gc, A, A, sa, sa, rA, rA, m, c));
-      const float d1 = E::re(entry<E>(Gc, B, B, sb, sb, rB, rB, m, c));
-      const T w = entry<E>(Gc, A, B, sa, sb, rA, rB, m, c);
+      const float d0 = E::re(entry<E>(Gc + 2 * A * m + A, m, c, sa, sa, rA, rA));
+      const float d1 = E::re(entry<E>(Gc + 2 * B * m + B, m, c, sb, sb, rB, rB));
+      const T w = entry<E>(Gc + 2 * A * m + B, m, c, sa, sb, rA, rB);
       R[((r + 1) & 1) * c + i] = rotation<E>(d0, d1, w);
     }
     if (owner) {
@@ -288,14 +338,405 @@ jacobi_eigh_kernel(const typename E::T* __restrict__ h_in, float* __restrict__ l
   }
 }
 
-// launch geometry: the fewest row pairs a thread (J) such that c columns of
-// Y = ceil(c / J) threads, rounded up to whole warps, and the c rotation
-// makers, in whole warps, fit in one block
-void row_pairs(int c, int* Y, int* threads) {
-  const int makers = (c + 31) / 32 * 32;
-  for (int J = (c * c + MAX_THREADS - 1) / MAX_THREADS;; ++J) {
+// --------------------- the cluster variant (84 < m <= 320) ---------------------
+
+// the block of a cluster that owns column slot s (pair s mod c), and the
+// slot's column in that block's rows of 2w: its w even slots, then its odd
+__device__ __forceinline__ int slot_block(int s, int c, int w) {
+  return (s < c ? s : s - c) / w;
+}
+__device__ __forceinline__ int slot_col(int s, int c, int w) {
+  return s < c ? s % w : (s - c) % w + w;
+}
+
+// p (in this block's shared memory) as the same offset in block q's: the
+// block's own address where q is this block k, so that the access stays in
+// the SM, else the cluster's window onto q
+template <typename P>
+__device__ __forceinline__ P* in_block(cg::cluster_group cluster, P* p, int q,
+                                       int k) {
+  return q == k ? p : cluster.map_shared_rank(p, q);
+}
+
+// the block of a cluster of blocks of w column pairs that makes pair i's
+// rotations: the one that holds a column of i's next diagonal block (the
+// columns of pairs A and B, whose positions move to i's) that crossed a
+// block edge in the last round, else the one that owns i. The crossed
+// column came by st.async, which completes on its holder's mbarrier only;
+// every other column is read where its holder's own owners wrote it. With
+// w >= 2 no maker needs two crossed columns in two blocks (a trap if so)
+__device__ __forceinline__ int maker_block(const int* src, int i, int c, int w) {
+  const int A = src[2 * i] >> 1, B = src[2 * i + 1] >> 1;
+  int at = -1;
+  for (int e = 0; e < 4; ++e) {
+    const int pos = 2 * (e < 2 ? A : B) + e % 2;
+    const int held = slot_block(slot(pos, c), c, w);
+    if (held != (src[pos] >> 1) / w) {  // written by another block's owner
+      if (at >= 0 && at != held) __trap();
+      at = held;
+    }
+  }
+  return at >= 0 ? at : i / w;
+}
+
+// shared::cta address of p, and the shared::cluster address of the same
+// offset in block q
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, int q) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(a), "r"(q));
+  return out;
+}
+
+// st.async: store into a block of the cluster (shared::cluster address a)
+// and count the bytes on that block's mbarrier (address bar), which makes
+// them visible to whoever waits on it
+__device__ __forceinline__ void st_async(unsigned a, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];"
+               ::"r"(a), "f"(v), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async(unsigned a, float2 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];"
+      ::"r"(a), "f"(v.x), "f"(v.y), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async(unsigned a, const Rot<C64>& r, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(a), "f"(r.c), "f"(0.f), "f"(r.z.x), "f"(r.z.y), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async(unsigned a, const Rot<F32>& r, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];"
+      ::"r"(a), "f"(r.c), "f"(r.z), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+// the one arrival of the barrier's phase, with the bytes it is to receive
+__device__ __forceinline__ void mbar_expect(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+// wait for the barrier's phase of this parity to complete; an exchange
+// still missing after a second traps (the launch fails) instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
+  unsigned long long t0 = 0;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (t0 == 0) t0 = now;
+    if (now - t0 > 1000000000ull) __trap();
+  }
+}
+
+// G's rounds on a cluster of nb blocks (one cluster a matrix): block k holds
+// rows 0..m-1 of the slots of its column pairs [k w, k w + wk), twice. Writes
+// every round's rotations to rot_log [B, rounds, c] and the final diagonal to
+// diag [B, m] (by position, unsorted) for the vector pass.
+//
+// The exchange of a round, with no cluster barrier: an owner whose output
+// column lies in another block (one column each way at a range's edge)
+// stores it there by st.async, and each maker, once its block's round is
+// done (a block barrier), stores the next rotation into every block's table
+// the same way; every block then waits on its own mbarrier for the bytes
+// it is owed (the rotations, and its edge columns). Two mbarriers alternate
+// by round, as a block can be at most one round ahead of another. Nothing
+// is overwritten while it may still be read: a block enters round r + 1
+// only with every block's rotations for it, which each block sends only
+// after all of its reads of round r. Nothing is read before it is written:
+// a maker reads in another block only what that block's owners wrote
+// before its block barrier, and the rotations it sent after that barrier
+// (their mbarrier's release, the wait's acquire) order that write before
+// the read; an edge column that crossed into a block is read only there,
+// after its own wait (maker_block).
+template <typename E>
+__global__ void __launch_bounds__(MAX_THREADS)
+jacobi_cluster_kernel(const typename E::T* __restrict__ h_in, float* __restrict__ diag,
+                      Rot<E>* __restrict__ rot_log, const int* __restrict__ dst_in,
+                      int m, int w, int Y, int sweeps) {
+  using T = typename E::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = m / 2;
+  const int L = 2 * w;  // a row of this block's G
+  const int nb = (int)cluster.num_blocks();
+  const int k = (int)cluster.block_rank();
+  const size_t b = blockIdx.x / nb;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int k0 = k * w;            // this block's first column pair
+  const int wk = min(w, c - k0);   // and how many it owns
+  const int rounds = sweeps * (m - 1);
+  const int buf = m * L;           // elements of one G buffer
+
+  T* G0 = reinterpret_cast<T*>(smem);  // G_r, G_{r+1}: buffers r & 1, 1 - (r & 1)
+  Rot<E>* R = reinterpret_cast<Rot<E>*>(G0 + 2 * buf);
+  int* dst = reinterpret_cast<int*>(R + 2 * c);
+  int* src = dst + m;
+  unsigned long long* mbar = reinterpret_cast<unsigned long long*>(src + m);
+  const T* H = h_in + b * m * m;
+  Rot<E>* rots = rot_log + b * rounds * c;
+
+  for (int j = tid; j < m; j += nthr) dst[j] = dst_in[j];
+  for (int e = tid; e < m * 2 * wk; e += nthr) {
+    const int row = e / (2 * wk), l = e % (2 * wk);
+    const bool odd = l >= wk;
+    const int pair = k0 + (odd ? l - wk : l);
+    G0[row * L + (odd ? l - wk + w : l)] = H[row * m + 2 * pair + odd];
+  }
+  // round 0's rotations, from H: every block makes all of them
+  for (int j = tid; j < c; j += nthr) {
+    const Rot<E> r0 = rotation<E>(E::re(H[2 * j * m + 2 * j]),
+                                  E::re(H[(2 * j + 1) * m + 2 * j + 1]),
+                                  H[2 * j * m + 2 * j + 1]);
+    R[j] = r0;
+    if (k == 0 && rounds > 0) rots[j] = r0;
+  }
+  if (tid == 0) {
+    mbar_init(smem_addr(mbar));
+    mbar_init(smem_addr(mbar + 1));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  for (int j = tid; j < m; j += nthr) src[dst[j]] = j;
+  // the bytes of edge columns other blocks' owners store here each round
+  int edge_bytes = 0;
+  for (int K = 0; K < c && tid == 0; ++K) {
+    for (int e = 0; e < 2; ++e) {
+      if (K / w != k && slot_block(slot(dst[2 * K + e], c), c, w) == k) {
+        edge_bytes += m * (int)sizeof(T);
+      }
+    }
+  }
+  cluster.sync();  // every block runs, its mbarriers initialised
+
+  // owner (K, y): column pair k0 + K, row pairs y, y + Y, ...; its two
+  // destination columns: here, or in the block that owns them (its
+  // shared::cluster address in buffer 0, and that block's first mbarrier)
+  const int K = tid % w, y = tid / w;
+  const int J = (c + Y - 1) / Y;
+  const bool owner = y < Y && K < wk;
+  const int makers = (w * Y + 31) / 32 * 32;
+  const int s0 = slot(dst[2 * min(k0 + K, c - 1)], c);
+  const int s1 = slot(dst[2 * min(k0 + K, c - 1) + 1], c);
+  const int b0 = slot_block(s0, c, w), b1 = slot_block(s1, c, w);
+  const int l0 = slot_col(s0, c, w), l1 = slot_col(s1, c, w);
+  const unsigned far0 = cluster_addr(smem_addr(G0 + l0), b0);
+  const unsigned far1 = cluster_addr(smem_addr(G0 + l1), b1);
+  const unsigned bar0 = cluster_addr(smem_addr(mbar), b0);
+  const unsigned bar1 = cluster_addr(smem_addr(mbar), b1);
+  // maker j of this block takes the j-th pair i (of this block's and its
+  // neighbours' edge pairs) that maker_block gives to this block, and
+  // rebuilds its next diagonal block from positions a and bb of this
+  // round: rows of pair A at the columns of A, rows of B and of A at the
+  // columns of B, in the blocks that hold them
+  int i = -1;
+  for (int p = max(k0 - 1, 0), j = tid - makers; j >= 0 && p < min(k0 + wk + 1, c); ++p) {
+    if (maker_block(src, p, c, w) == k && j-- == 0) i = p;
+  }
+  const bool maker = i >= 0;
+  const int a = maker ? src[2 * i] : 0, bb = maker ? src[2 * i + 1] : 1;
+  const int A = a >> 1, sa = a & 1, B = bb >> 1, sb = bb & 1;
+  const T* const gAA = in_block(cluster, G0, A / w, k) + 2 * A * L + A % w;
+  const T* const gBB = in_block(cluster, G0, B / w, k) + 2 * B * L + B % w;
+  const T* const gAB = in_block(cluster, G0, B / w, k) + 2 * A * L + B % w;
+
+  for (int r = 0; r < rounds; ++r) {
+    const int n = r & 1, t = r + 1;  // G_r in buffer n; round t's data
+    const Rot<E>* Rc = R + n * c;
+    const bool make = maker && t < rounds;
+    if (tid == 0) {
+      mbar_expect(smem_addr(mbar + (t & 1)),
+                  (t < rounds ? c * (int)sizeof(Rot<E>) : 0) + edge_bytes);
+    }
+    Rot<E> next;
+    if (make) {
+      const Rot<E> rA = Rc[A], rB = Rc[B];
+      const int off = n * buf;  // buffer n sits at the same offset in every block
+      const float d0 = E::re(entry<E>(gAA + off, L, w, sa, sa, rA, rA));
+      const float d1 = E::re(entry<E>(gBB + off, L, w, sb, sb, rB, rB));
+      const T wv = entry<E>(gAB + off, L, w, sa, sb, rA, rB);
+      next = rotation<E>(d0, d1, wv);
+    }
+    if (owner) {
+      const T* Gc = G0 + n * buf;
+      T* Gn = G0 + (1 - n) * buf;
+      const unsigned far = (1 - n) * buf * (unsigned)sizeof(T), bar = (t & 1) * 8;
+      const Rot<E> rk = Rc[k0 + K];
+      for (int j = 0; j < J; ++j) {
+        const int I = y + j * Y;
+        if (I >= c) break;
+        const Rot<E> ri = Rc[I];
+        const int p = 2 * I, q = p + 1;
+        const int2 dI = *reinterpret_cast<const int2*>(dst + p);
+        T x0, x1, y0, y1, xq0, xq1;
+        // rows p, q of J_I^H G in the pair's two columns, then times J_K
+        E::left(ri.c, ri.z, Gc[p * L + K], Gc[q * L + K], x0, xq0);
+        E::left(ri.c, ri.z, Gc[p * L + w + K], Gc[q * L + w + K], x1, xq1);
+        for (int h = 0; h < 2; ++h) {
+          const int row = h ? dI.y : dI.x;
+          E::right(rk.c, rk.z, h ? xq0 : x0, h ? xq1 : x1, y0, y1);
+          if (b0 == k) {
+            Gn[row * L + l0] = y0;
+          } else {
+            st_async(far0 + far + row * L * (unsigned)sizeof(T), y0, bar0 + bar);
+          }
+          if (b1 == k) {
+            Gn[row * L + l1] = y1;
+          } else {
+            st_async(far1 + far + row * L * (unsigned)sizeof(T), y1, bar1 + bar);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this block's round is done: G_{r+1} here, reads over
+    if (make) {
+      const unsigned to = smem_addr(R + (t & 1) * c + i), bar = smem_addr(mbar + (t & 1));
+      for (int q = 0; q < nb; ++q) st_async(cluster_addr(to, q), next, cluster_addr(bar, q));
+      rots[t * c + i] = next;
+    }
+    mbar_wait(smem_addr(mbar + (t & 1)), ((t - 1) >> 1) & 1);
+  }
+
+  // the diagonal at this block's positions (local reads only)
+  const T* Gf = G0 + (rounds & 1) * buf;
+  for (int l = tid; l < 2 * wk; l += nthr) {
+    const bool odd = l >= wk;
+    const int pos = 2 * (k0 + (odd ? l - wk : l)) + odd;
+    diag[b * m + pos] = E::re(Gf[pos * L + (odd ? l - wk + w : l)]);
+  }
+  cluster.sync();  // no block leaves while another may reach its memory
+}
+
+__device__ __forceinline__ void cp_async8(void* s, const void* g) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sa), "l"(g));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// V's rounds from the rotation log: block (row group, matrix) gives each of
+// its V_WARPS warps one row of V (double-buffered, in slots); every round a
+// lane applies J_K to its column pairs K = lane, lane + 32, ... and stores
+// them at their next slots. Rows are independent, so a round ends with a
+// warp barrier; the block waits together only to stage the next V_CHUNK
+// rounds of rotations (cp.async, double-buffered). Then the eigenvalues are
+// ranked (each block ranks all m) and the rows written in their order.
+template <typename E>
+__global__ void __launch_bounds__(32 * V_WARPS)
+jacobi_vectors_kernel(const float* __restrict__ diag, const Rot<E>* __restrict__ rot_log,
+                      float* __restrict__ lam_out, typename E::T* __restrict__ v_out,
+                      const int* __restrict__ dst_in, int m, int rounds) {
+  using T = typename E::T;
+  constexpr int KMAX = (CLUSTER_MAX_M / 2 + 31) / 32;  // column pairs a lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int c = m / 2;
+  const int groups = (m + V_WARPS - 1) / V_WARPS;
+  const size_t b = blockIdx.x / groups;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = (blockIdx.x % groups) * V_WARPS + warp;
+  Rot<E>* stage = reinterpret_cast<Rot<E>*>(smem);  // [2][V_CHUNK][c]
+  T* Vall = reinterpret_cast<T*>(stage + 2 * V_CHUNK * c);
+  T* Vb = Vall + warp * 2 * m;  // this warp's row, twice
+  int* dst = reinterpret_cast<int*>(Vall + V_WARPS * 2 * m);
+  int* perm = dst + m;
+  float* lam = reinterpret_cast<float*>(perm + m);
+
+  const Rot<E>* rots = rot_log + b * rounds * c;
+  const int chunks = (rounds + V_CHUNK - 1) / V_CHUNK;
+  auto stage_chunk = [&](int t) {
+    const int r0 = t * V_CHUNK, nr = min(V_CHUNK, rounds - r0);
+    const char* g = reinterpret_cast<const char*>(rots + r0 * c);
+    char* s = reinterpret_cast<char*>(stage + (t & 1) * V_CHUNK * c);
+    const int units = nr * c * (int)sizeof(Rot<E>) / 8;
+    for (int u = tid; u < units; u += blockDim.x) cp_async8(s + 8 * u, g + 8 * u);
+    cp_async_commit();
+  };
+  if (chunks > 0) stage_chunk(0);
+  for (int j = tid; j < m; j += blockDim.x) {
+    dst[j] = dst_in[j];
+    lam[j] = diag[b * m + j];
+  }
+  if (row < m) {
+    for (int col = lane; col < m; col += 32) Vb[slot(col, c)] = E::eye(row == col);
+  }
+  __syncthreads();
+  for (int j = tid; j < m; j += blockDim.x) {
+    const float lj = lam[j];
+    int rank = 0;
+    for (int k = 0; k < m; ++k) rank += before(lam[k], k, lj, j);
+    perm[rank] = j;
+    if (blockIdx.x % groups == 0) lam_out[b * m + rank] = lj;
+  }
+  int s0[KMAX], s1[KMAX];
+#pragma unroll
+  for (int u = 0; u < KMAX; ++u) {
+    const int K = min(lane + 32 * u, c - 1);
+    s0[u] = slot(dst[2 * K], c);
+    s1[u] = slot(dst[2 * K + 1], c);
+  }
+
+  for (int t = 0; t < chunks; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk t landed; every warp is done with chunk t - 1
+    if (t + 1 < chunks) stage_chunk(t + 1);
+    if (row >= m) continue;
+    const Rot<E>* Rs = stage + (t & 1) * V_CHUNK * c;
+    const int r0 = t * V_CHUNK, nr = min(V_CHUNK, rounds - r0);
+    for (int rr = 0; rr < nr; ++rr) {
+      const int r = r0 + rr;
+      const T* Vc = Vb + (r & 1) * m;
+      T* Vn = Vb + ((r + 1) & 1) * m;
+      const Rot<E>* Rr = Rs + rr * c;
+#pragma unroll
+      for (int u = 0; u < KMAX; ++u) {
+        const int K = lane + 32 * u;
+        if (K < c) {
+          const Rot<E> rk = Rr[K];
+          T y0, y1;
+          E::right(rk.c, rk.z, Vc[K], Vc[c + K], y0, y1);
+          Vn[s0[u]] = y0;
+          Vn[s1[u]] = y1;
+        }
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();  // perm
+  if (row < m) {
+    const T* Vf = Vb + (rounds & 1) * m;
+    T* out = v_out + (b * m + row) * m;
+    for (int col = lane; col < m; col += 32) out[col] = Vf[slot(perm[col], c)];
+  }
+}
+
+// ------------------------------- host side ------------------------------------
+
+// launch geometry: the fewest row pairs a thread (J) such that w columns
+// pairs of Y = ceil(c / J) threads, rounded up to whole warps, and the w
+// rotation makers, in whole warps, fit in one block (w = c: one block a
+// matrix)
+void row_pairs(int c, int w, int* Y, int* threads) {
+  const int makers = (w + 31) / 32 * 32;
+  for (int J = (c * w + MAX_THREADS - 1) / MAX_THREADS;; ++J) {
     *Y = (c + J - 1) / J;
-    *threads = (c * *Y + 31) / 32 * 32 + makers;
+    *threads = (w * *Y + 31) / 32 * 32 + makers;
     if (*threads <= MAX_THREADS) return;
   }
 }
@@ -308,37 +749,131 @@ constexpr size_t smem_bytes(int m) {
          (size_t)m * sizeof(Rot<E>) + 3 * (size_t)m * sizeof(int);
 }
 
+// a cluster block's: its G (m rows of 2w, double-buffered), the rotations of
+// two rounds, dst and src, and two mbarriers
+template <typename E>
+constexpr size_t cluster_smem(int m, int w) {
+  return 4 * (size_t)m * w * sizeof(typename E::T) + (size_t)m * sizeof(Rot<E>) +
+         2 * (size_t)m * sizeof(int) + 16;
+}
+
+// the vector pass's: two stages of rotations, V_WARPS rows twice, dst, the
+// order and the diagonal
+template <typename E>
+constexpr size_t vector_smem(int m) {
+  return 2 * (size_t)V_CHUNK * (m / 2) * sizeof(Rot<E>) +
+         2 * (size_t)V_WARPS * m * sizeof(typename E::T) + 3 * (size_t)m * 4;
+}
+
+// a cluster of nb blocks of w column pairs: about PAIRS_PER_BLOCK a block,
+// at most MAX_CLUSTER blocks, and no empty block
+void cluster_shape(int m, int* nb, int* w) {
+  const int c = m / 2;
+  const int n = min((c + PAIRS_PER_BLOCK - 1) / PAIRS_PER_BLOCK, MAX_CLUSTER);
+  *w = (c + n - 1) / n;
+  *nb = (c + *w - 1) / *w;
+}
+
+// cluster_shape's w is at most the larger of PAIRS_PER_BLOCK and
+// ceil(c / MAX_CLUSTER); the shared memory grows with m and w, and a
+// block's one warp of makers takes up to w + 2 pairs (maker_block)
+constexpr int MAX_W = PAIRS_PER_BLOCK > (CLUSTER_MAX_M / 2 + MAX_CLUSTER - 1) / MAX_CLUSTER
+                          ? PAIRS_PER_BLOCK
+                          : (CLUSTER_MAX_M / 2 + MAX_CLUSTER - 1) / MAX_CLUSTER;
+static_assert(cluster_smem<C64>(CLUSTER_MAX_M, MAX_W) <= SMEM_OPT_IN,
+              "every cluster block's G fits in its shared memory");
+static_assert(MAX_W + 2 <= 32, "a cluster block's makers fit in one warp");
+
+template <typename E>
+size_t work_bytes(int batch, int m, int sweeps) {
+  if (m <= SMEM_MAX_M) return 0;
+  if (m <= CLUSTER_MAX_M) {  // the rotation log and the diagonal
+    return (size_t)batch * ((size_t)sweeps * (m - 1) * (m / 2) * sizeof(Rot<E>) +
+                            (size_t)m * sizeof(float));
+  }
+  return (size_t)batch * 4 * m * m * sizeof(typename E::T);  // G and V, twice
+}
+
 template <typename E>
 int launch(const void* h, void* lam, void* v, void* work, const int* dst, int batch,
            int m, int sweeps, int dev, cudaStream_t stream) {
+  using T = typename E::T;
   // opt in, once per device, to the most dynamic shared memory any m needs
   static bool opted_in[MAX_DEVICES] = {};
   if (!opted_in[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
+    cudaError_t err = cudaFuncSetAttribute(
         jacobi_eigh_kernel<E, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes<E>(SMEM_MAX_M));
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(jacobi_cluster_kernel<E>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM_OPT_IN);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(jacobi_vectors_kernel<E>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)vector_smem<E>(CLUSTER_MAX_M));
+    }
     if (err != cudaSuccess) return (int)err;
     opted_in[dev] = true;
   }
-  using T = typename E::T;
   const int c = m / 2;
   int rows = 0, threads = 0;
-  row_pairs(c, &rows, &threads);
-  const auto kernel = m <= SMEM_MAX_M ? jacobi_eigh_kernel<E, true>
-                                     : jacobi_eigh_kernel<E, false>;
-  kernel<<<batch, threads, smem_bytes<E>(m), stream>>>(
-      static_cast<const T*>(h), static_cast<float*>(lam), static_cast<T*>(v),
-      static_cast<T*>(work), dst, m, rows, sweeps);
+  if (m <= SMEM_MAX_M || m > CLUSTER_MAX_M) {
+    row_pairs(c, c, &rows, &threads);
+    const auto kernel = m <= SMEM_MAX_M ? jacobi_eigh_kernel<E, true>
+                                        : jacobi_eigh_kernel<E, false>;
+    kernel<<<batch, threads, smem_bytes<E>(m), stream>>>(
+        static_cast<const T*>(h), static_cast<float*>(lam), static_cast<T*>(v),
+        static_cast<T*>(work), dst, m, rows, sweeps);
+    return (int)cudaGetLastError();
+  }
+  int nb = 0, w = 0;
+  cluster_shape(m, &nb, &w);
+  row_pairs(c, w, &rows, &threads);
+  const int rounds = sweeps * (m - 1);
+  Rot<E>* rot_log = static_cast<Rot<E>*>(work);
+  float* diag = reinterpret_cast<float*>(rot_log + (size_t)batch * rounds * c);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb * batch);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = cluster_smem<E>(m, w);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nb;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, jacobi_cluster_kernel<E>,
+                                             static_cast<const T*>(h), diag, rot_log,
+                                             dst, m, w, rows, sweeps);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = (m + V_WARPS - 1) / V_WARPS;
+  jacobi_vectors_kernel<E><<<groups * batch, 32 * V_WARPS, vector_smem<E>(m), stream>>>(
+      diag, rot_log, static_cast<float*>(lam), static_cast<T*>(v), dst, m, rounds);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Bytes of device scratch (`work`) that qlt_jacobi_eigh needs for these
+// arguments: 0 for m <= 84; for m <= 320 the rotation log and the diagonal,
+// B (sweeps (m - 1) (m / 2) rotations + m floats); above, G and V twice,
+// [B, 4, m, m] of h's type.
+extern "C" size_t qlt_jacobi_eigh_work_bytes(int is_complex, int batch, int m,
+                                             int sweeps) {
+  if (batch <= 0 || m < 2 || m > MAX_M || m % 2 != 0 || sweeps < 0) return 0;
+  return is_complex ? work_bytes<C64>(batch, m, sweeps) : work_bytes<F32>(batch, m, sweeps);
+}
+
 // h [B, m, m] Hermitian, complex64 (is_complex = 1) or float32; lam [B, m]
 // float32; v [B, m, m] of h's type; dst [m] int32, the position moves of one
-// round; for m > 84, work is [B, 4, m, m] of h's type (else unused, may be
-// null). All on device `device`; launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// round; work: qlt_jacobi_eigh_work_bytes bytes of device memory, 16-byte
+// aligned (null where that is 0). All on device `device`; launches on
+// `stream` (one kernel, or for 84 < m <= 320 the cluster kernel and the
+// vector pass) and returns the CUDA error of the launch (0 on success).
 extern "C" int qlt_jacobi_eigh(const void* h, void* lam, void* v, void* work,
                                const void* dst, int is_complex, int batch, int m,
                                int sweeps, int device, void* stream) {

@@ -6,7 +6,8 @@ told otherwise):
 
 * ``QFTPipeline``: spectrum analysis. rsvd or TT-SVD encode, the
   gate-built QFT operator, the zip-up apply, and a readout of the output
-  state through kernel K1 (ops/readout_kernels.py) at chosen frequencies;
+  state at chosen frequencies: through kernel K1 (ops/readout_kernels.py)
+  where it takes the state, else the plain ``coefficient_batch``;
 * ``DTPipeline``: the damping transform on the paired register: the
   gate-built DT operator, the zip-up apply and a plain
   ``coefficient_batch`` readout, as in the JAX package;
@@ -27,7 +28,10 @@ from qilaplace_tpu_torch.core.mps import (
     coefficient_batch,
 )
 from qilaplace_tpu_torch.ops.apply import apply
-from qilaplace_tpu_torch.ops.readout_kernels import coefficient_batch_k1
+from qilaplace_tpu_torch.ops.readout_kernels import (
+    coefficient_batch_k1,
+    k1_takes,
+)
 from qilaplace_tpu_torch.scan.pole_scan import (
     chi_grid,
     chi_grid_direct,
@@ -72,12 +76,16 @@ class QFTPipeline:
     def spectrum(self, psi_out, freqs) -> torch.Tensor:
         """Coefficients at integer frequency indices ``freqs`` (natural
         order; the bit reversal is part of the readout configs). Read by
-        K1: on the card it launches the kernel, on the CPU it takes the
-        plain version."""
+        K1 where it takes the state (``readout_kernels.k1_takes``: a
+        complex64 state on the card with chi <= 256); any other state, the
+        CPU's among them, by the plain ``coefficient_batch`` in its own
+        dtype, as the JAX package reads."""
         m = _chain(psi_out)
         configs = tensor_int_to_bits(freqs, self.n, order="lsb",
                                      device=m.device)
         configs = configs.to(torch.int32).contiguous()
+        if not k1_takes(m.cores.device, m.dtype, m.chi, m.amplitude):
+            return coefficient_batch(psi_out, configs)
         chain = MPS(cores=m.cores.contiguous(), ranks=m.ranks,
                     amplitude=m.amplitude)
         return coefficient_batch_k1(_rewrap(psi_out, chain), configs)

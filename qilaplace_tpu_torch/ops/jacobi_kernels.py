@@ -3,20 +3,34 @@
 Replaces the TPU kernel ``_jacobi_kernel`` (``qilaplace_tpu/ops/jacobi.py:
 302``, launched by ``jacobi_eigh_pallas`` at ``:420``). The CUDA C++ source
 is ``qilaplace_tpu_torch/csrc/jacobi_eigh.cu``. What bounds it on the card
-is the chain of sweeps * (m - 1) dependent rounds at B = 1, on the one SM
-that holds the matrix, so the design cuts the latency of a round:
+is the chain of sweeps * (m - 1) dependent rounds at B = 1, so the design
+cuts the latency of a round:
 
 - pair-adjacent layout, as the plain version keeps it: pair i sits at
-  positions (2i, 2i+1), a 2x2 block of G is one 16-byte load a row, and
-  each round writes its output at the next round's positions
-  (:func:`position_moves`, handed to the kernel as a table of m ints and
-  cached on the device per m) in a second buffer;
-- one block barrier a round: G and V are double-buffered, and each thread
-  computes the two rotations it needs from the diagonal blocks itself;
+  positions (2i, 2i+1), and each round writes its output at the next
+  round's positions (:func:`position_moves`, handed to the kernel as a
+  table of m ints and cached on the device per m) in a second buffer;
+- one synchronisation a round: G is double-buffered, and warps of
+  rotation makers (one thread a pair) rebuild each pair's next diagonal
+  block from this round's G and rotations and make the next round's
+  rotations while the other threads update G;
 - no division in the round: the 2-D thread index maps threads to blocks;
   up to 1,024 threads a block;
 - a real variant: float32 input stays float32 (9 m^2 flops a round, half
-  the shared memory) and V comes back real.
+  the memory) and V comes back real.
+
+By m: up to ``SMEM_MAX_M`` one block a matrix holds G and V in shared
+memory and updates both each round. Up to ``CLUSTER_MAX_M``, G alone is
+split by column pairs over the shared memory of a cluster of up to 8
+blocks; each round the blocks trade the next rotations and the edge
+columns by ``st.async`` into each other's shared memory, each waiting on
+its own mbarrier (no cluster barrier), and log the rotations to device
+memory; a pair's rotation is made in the block that holds the column of
+its next diagonal block that crossed an edge, if one did, so that no
+block reads a column in another before it has landed there; a second kernel then applies the log to V, one row a warp, and
+writes V in eigenvalue order. Above, the first variant's code runs on
+buffers in device memory. Every variant sums each entry as the plain
+version does, so on the card K2 reproduces it bit for bit.
 
 :func:`jacobi_eigh_k2` is the wrapper. A matrix on the CPU goes to the plain
 torch version (:func:`jacobi_eigh_k2_reference`, the solver of
@@ -45,7 +59,8 @@ from qilaplace_tpu_torch.ops.kernel_build import load_kernel
 
 SOURCE = "jacobi_eigh.cu"
 MAX_M = 512      # must match MAX_M in the CUDA source
-SMEM_MAX_M = 84  # must match SMEM_MAX_M: larger m keeps G, V in device memory
+SMEM_MAX_M = 84  # must match SMEM_MAX_M: larger m splits G over a cluster
+CLUSTER_MAX_M = 320  # must match CLUSTER_MAX_M: larger m keeps G, V in device memory
 
 
 def jacobi_eigh_k2_reference(H: torch.Tensor, *, sweeps: int | None = None):
@@ -106,12 +121,22 @@ def _dst_table(m: int, device: torch.device) -> torch.Tensor:
     return torch.tensor(position_moves(m), dtype=torch.int32, device=device)
 
 
-@lru_cache(maxsize=None)
-def _kernel():
-    fn = load_kernel(SOURCE).qlt_jacobi_eigh
+def bind(lib: ctypes.CDLL):
+    """The kernel's launch function ``qlt_jacobi_eigh`` and its scratch
+    size ``qlt_jacobi_eigh_work_bytes`` in a loaded build of the source,
+    with their argument types set."""
+    fn = lib.qlt_jacobi_eigh
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    work = lib.qlt_jacobi_eigh_work_bytes
+    work.argtypes = [ctypes.c_int] * 4
+    work.restype = ctypes.c_size_t
+    return fn, work
+
+
+@lru_cache(maxsize=None)
+def _kernel():
+    return bind(load_kernel(SOURCE))
 
 
 def jacobi_eigh_k2(H: torch.Tensor, *, sweeps: int | None = None):
@@ -122,8 +147,9 @@ def jacobi_eigh_k2(H: torch.Tensor, *, sweeps: int | None = None):
     CPU matrix: the plain torch version, any dtype and m. CUDA matrix: the
     kernel, which takes float32 or complex64 with m even, 2 <= m <= 512;
     it returns float32 eigenvalues and V of the input's dtype (a float32
-    input runs the real variant). Every launch adds one to
-    ``jacobi_eigh_k2.launches`` and to
+    input runs the real variant). Every launch (for SMEM_MAX_M < m <=
+    CLUSTER_MAX_M the cluster kernel and its vector pass, one launch) adds
+    one to ``jacobi_eigh_k2.launches`` and to
     ``jacobi_eigh_k2.by_shape[(m, B, "c64" or "f32", sweeps)]``."""
     if H.device.type == "cpu":
         return jacobi_eigh_k2_reference(H, sweeps=sweeps)
@@ -146,10 +172,12 @@ def jacobi_eigh_k2(H: torch.Tensor, *, sweeps: int | None = None):
     lam = torch.empty(B, m, dtype=torch.float32, device=H.device)
     V = torch.empty_like(Hc)
     if B:
-        work = (torch.empty(B, 4, m, m, dtype=H.dtype, device=H.device)
-                if m > SMEM_MAX_M else None)
         cplx = H.is_complex()
-        err = _kernel()(
+        launch, work_bytes = _kernel()
+        nbytes = work_bytes(int(cplx), B, m, sweeps)
+        work = (torch.empty(nbytes, dtype=torch.uint8, device=H.device)
+                if nbytes else None)
+        err = launch(
             Hc.data_ptr(), lam.data_ptr(), V.data_ptr(),
             0 if work is None else work.data_ptr(),
             _dst_table(m, H.device).data_ptr(), int(cplx), B, m, sweeps,

@@ -31,6 +31,18 @@ MAX_CHI = 256    # widest bond the kernel takes
 LANE_TILE = 64   # the kernel's column chunk; packed chains are padded to it
 
 
+def k1_takes(device, dtype: torch.dtype, chi: int, amplitude) -> bool:
+    """The one rule by which callers route a chain readout to K1: a
+    complex64 chain on a CUDA device with chi <= MAX_CHI and a real
+    amplitude, which is what the kernel takes. Callers decide it up front
+    (for a chain that is not formed yet, from what it will be) and read any
+    other chain with a plain version in its own dtype; nothing catches the
+    kernel's exception."""
+    return (torch.device(device).type == "cuda" and dtype == torch.complex64
+            and chi <= MAX_CHI
+            and not torch.is_complex(torch.as_tensor(amplitude)))
+
+
 def coefficient_batch_k1_reference(chain, configs) -> torch.Tensor:
     """Plain torch version of K1: for each config row, v = e_0 and
     v <- v @ A[site, :, bit, :] over the sites (both branch products formed,

@@ -2,16 +2,20 @@
 
 Counterpart of ``qilaplace_tpu/scan/pole_scan.py``. Two readout routes:
 
-* direct (``chi_grid_direct``): ``<config| W |psi>`` per grid point. It
-  routes by width alone, on every device: an effective chain chi_eff =
-  chi_W * chi_psi <= 256 is folded by ``zipper_chain`` and read by kernel
-  K1 (its plain torch version for CPU tensors), wider pairs take the
-  factored ``apply_coefficient_batch``. Both compute the same numbers.
+* direct (``chi_grid_direct``): ``<config| W |psi>`` per grid point. A
+  chain that K1 takes (``readout_kernels.k1_takes``: on the card, the
+  effective chain of chi_eff = chi_W * chi_psi <= 256 in complex64 with a
+  real amplitude) is folded by ``zipper_chain`` and read by kernel K1;
+  every other pair on the card (complex128, or wider) takes the factored
+  ``apply_coefficient_batch`` in its own dtype, as the JAX package's
+  ``_direct_vals`` does off its Pallas route. On the CPU the route is by
+  width alone: chi_eff <= 256 takes ``zipper_chain`` and K1's plain
+  version. Both routes compute the same numbers.
 * apply-then-read (``chi_grid``, ``pole_scan``): the product state
   ``apply(W, psi)`` is formed once per transform and read at every grid
-  point. A complex64 state on the card with chi <= 256 goes to K1 (the
-  counterpart of the JAX package's "TPU and fits VMEM" Pallas route);
-  every other state takes the plain ``coefficient_batch``.
+  point. A state that K1 takes goes to K1 (the counterpart of the JAX
+  package's "TPU and fits VMEM" Pallas route); every other state takes
+  the plain ``coefficient_batch``.
 
 Coordinate conventions: s(k, l) = (wr k + i wi l) / N, z(k, l) = e^{-s(k, l)},
 chi(k, l) read out at interleaved LSB-first (k, l) bits. ``z_from_kl`` and
@@ -31,7 +35,11 @@ from qilaplace_tpu_torch.ops.apply import (
     apply_coefficient_batch,
     zipper_chain,
 )
-from qilaplace_tpu_torch.ops.readout_kernels import MAX_CHI, coefficient_batch_k1
+from qilaplace_tpu_torch.ops.readout_kernels import (
+    MAX_CHI,
+    coefficient_batch_k1,
+    k1_takes,
+)
 from qilaplace_tpu_torch.transforms.zt import zt_mpo
 from qilaplace_tpu_torch.utils.bits import paired_config_from_kl
 
@@ -40,10 +48,16 @@ TWO_PI = 2.0 * math.pi
 
 def direct_vals(W, psi, configs) -> torch.Tensor:
     """Direct <config|W|psi> values at int32 ``configs`` [B, 2n] on psi's
-    device, routed by chi_eff = chi_W * chi_psi (the JAX package's
-    ``_direct_vals``, which routes by backend instead)."""
-    chi_eff = W.chain.chi * psi.chain.chi
-    if chi_eff <= MAX_CHI:
+    device (the JAX package's ``_direct_vals``): the effective chain of
+    ``zipper_chain`` through K1 where K1 takes it, else the factored
+    ``apply_coefficient_batch`` in the pair's own dtype; on the CPU, every
+    pair with chi_eff = chi_W * chi_psi <= 256 takes the effective chain
+    and K1's plain version."""
+    chain = psi.chain
+    chi_eff = W.chain.chi * chain.chi
+    dtype = torch.promote_types(W.chain.dtype, chain.dtype)
+    if chi_eff <= MAX_CHI and (chain.cores.device.type == "cpu" or k1_takes(
+            chain.cores.device, dtype, chi_eff, chain.amplitude)):
         return coefficient_batch_k1(zipper_chain(W, psi), configs)
     return apply_coefficient_batch(W, psi, configs)
 
@@ -54,15 +68,6 @@ def _grid_configs(n: int, ks: torch.Tensor, ls: torch.Tensor):
     return paired_config_from_kl(K.reshape(-1), L.reshape(-1), n)
 
 
-def _kernel_readout_ok(psi_out) -> bool:
-    """True when K1 reads the state: a complex64 chain on a CUDA device
-    with chi <= MAX_CHI (what the JAX package's Pallas route asks of its
-    TPU: a backend that runs the kernel and a core stack that fits)."""
-    chain = psi_out.chain
-    return (chain.cores.is_cuda and chain.dtype == torch.complex64
-            and chain.chi <= MAX_CHI)
-
-
 def chi_grid(psi_out: ZTMPS, ks, ls, *,
              use_kernel: bool | None = None) -> torch.Tensor:
     """Sample chi on the outer product of index vectors ``ks`` x ``ls``
@@ -70,16 +75,18 @@ def chi_grid(psi_out: ZTMPS, ks, ls, *,
     [len(ks), len(ls)] complex grid on the state's device.
 
     ``use_kernel=None`` (default) reads through K1 whenever it takes the
-    state (:func:`_kernel_readout_ok`); True sends it to K1's wrapper (the
-    plain version for a CPU state), False to the plain
-    ``coefficient_batch``."""
+    state (``readout_kernels.k1_takes``: what the JAX package's Pallas
+    route asks of its TPU, a backend that runs the kernel and a core stack
+    that fits); True sends it to K1's wrapper (the plain version for a CPU
+    state), False to the plain ``coefficient_batch``."""
     chain = psi_out.chain
     device = chain.device
     ks = torch.as_tensor(ks, dtype=torch.int64, device=device)
     ls = torch.as_tensor(ls, dtype=torch.int64, device=device)
     configs = _grid_configs(psi_out.n, ks, ls)
     if use_kernel is None:
-        use_kernel = _kernel_readout_ok(psi_out)
+        use_kernel = k1_takes(chain.cores.device, chain.dtype, chain.chi,
+                              chain.amplitude)
     if use_kernel:
         vals = coefficient_batch_k1(
             MPS(cores=chain.cores.contiguous(), ranks=chain.ranks,

@@ -12,7 +12,12 @@ with the same sweeps, in the same dtype on the card) against
 ``torch.linalg.eigh`` in float64 against ``jacobi_kernels.rounding_bar``:
 the same bar, or twice the plain version's own figure on the same input
 where that is larger (its float32 rounding floor, or its unconverged
-residual after few sweeps).
+residual after few sweeps). On the cluster variant's shapes (84 < m <= 320:
+the gate path's m = 160 at 4, 6 and 7 sweeps, the largest complex64 solve
+below cutoff 1e-10, m = 288, and the real variant) the eigenvalues must
+equal the plain version's bit for bit: every variant sums each entry as
+the plain version's matrix products do, also with 132 matrices at once,
+launch after launch.
 """
 
 import numpy as np
@@ -40,7 +45,7 @@ def hermitian(rng, B, m, complex_=True, spectrum=None, rank=None):
     return H.astype(np.complex64 if complex_ else np.float32)
 
 
-def check(H_np, sweeps, device):
+def check(H_np, sweeps, device, identical=False):
     H = torch.from_numpy(H_np).to(device)
     m = H.shape[-1]
     before = jk.jacobi_eigh_k2.launches
@@ -49,6 +54,8 @@ def check(H_np, sweeps, device):
     assert jk.jacobi_eigh_k2.launches == before + 1
     assert lam.dtype == torch.float32 and V.dtype == H.dtype
     lam_p, V_p = jk.jacobi_eigh_k2_reference(H, sweeps=sweeps)
+    if identical:
+        assert torch.equal(lam, lam_p)
     scale = float(lam_p.abs().max().clamp_min(1e-30))
     assert float((lam - lam_p).abs().max()) / scale <= jk.tolerance(m)
     got, plain = jk.figures(H, lam, V), jk.figures(H, lam_p, V_p)
@@ -82,10 +89,46 @@ def test_k2_encoder_shapes(cuda_device, m, B, polish):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [2, jk.SMEM_MAX_M, jk.SMEM_MAX_M + 2, 256, 512])
+@pytest.mark.parametrize("m", [2, jk.SMEM_MAX_M, jk.SMEM_MAX_M + 2, 256,
+                               jk.CLUSTER_MAX_M, jk.CLUSTER_MAX_M + 2, 512])
 def test_k2_route_edges(cuda_device, m):
     rng = np.random.default_rng(m)
     check(hermitian(rng, 4, m), default_sweeps(m), cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,B,complex_,sweeps", [
+    (160, 1, True, 4), (160, 1, True, 6), (160, 1, True, 7),
+    (288, 3, True, 7), (160, 1, False, 6)])
+def test_k2_cluster_shapes(cuda_device, m, B, complex_, sweeps):
+    # the cluster variant at the gate path's shapes, bit-identical
+    # eigenvalues; one launch counted under its shape
+    rng = np.random.default_rng(m + B + sweeps)
+    key = (m, B, "c64" if complex_ else "f32", sweeps)
+    before = jk.jacobi_eigh_k2.by_shape[key]
+    check(hermitian(rng, B, m, complex_=complex_), sweeps, cuda_device,
+          identical=True)
+    assert jk.jacobi_eigh_k2.by_shape[key] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [160, 288])
+def test_k2_cluster_many_clusters_repeated(cuda_device, m):
+    # more clusters than the card holds at once (132 matrices, 8 blocks
+    # each), five launches: every run's eigenvalues equal the plain
+    # version's bit for bit and every run's V the first's. A maker that read
+    # a column across a block edge before its store landed would show as a
+    # run that differs
+    rng = np.random.default_rng(900 + m)
+    H = torch.from_numpy(hermitian(rng, 132, m)).to(cuda_device)
+    lam_p, _ = jk.jacobi_eigh_k2_reference(H, sweeps=7)
+    V0 = None
+    for _ in range(5):
+        lam, V = jk.jacobi_eigh_k2(H, sweeps=7)
+        torch.cuda.synchronize()
+        assert torch.equal(lam, lam_p)
+        V0 = V if V0 is None else V0
+        assert torch.equal(V, V0)
 
 
 @pytest.mark.gpu

@@ -5,11 +5,21 @@ The kernel (csrc/jacobi_eigh.cu) reads one table from the wrapper,
 entries to position ``dst[p]`` of the next round's buffer. These tests
 replay that table in numpy against the plain version's tournament
 (``_tournament_sigma``), mirror the kernel's launch geometry (thread
-tid = y * c + K takes the blocks (I, K) for I = y, y + Y, ...; whole warps
-after those make the rotations), and run a numpy emulation of its rounds
-(columns stored even positions first, double buffer, stores at the next
-positions, each round's rotations rebuilt from the previous G and
-rotations) against the plain torch solver.
+tid = y * w + K takes the blocks (I, K) for I = y, y + Y, ...; whole warps
+after those make the rotations; w = c column pairs in one block for
+m <= 84 and m > 320, about PAIRS_PER_BLOCK a block of a cluster between),
+and run numpy emulations of its rounds against the plain torch solver:
+the one-block variant (columns stored even positions first, double
+buffer, stores at the next positions, each round's rotations rebuilt from
+the previous G and rotations), and the cluster variant in its own storage
+(each block's columns of G, stores across a range's edge into the
+neighbour's buffer, makers placed where they read across an edge only
+what the holding block wrote, writing every block's table and the
+rotation log, then V from the log alone, a row at a time).
+The two emulations run the same arithmetic, so they agree bit for bit;
+against the plain version (whose CPU matrix products round otherwise) they
+are held to ``jacobi_kernels.tolerance``. On the card the kernel matches
+the plain version bit for bit (tests/port/test_torch_k2_gpu.py).
 """
 
 import re
@@ -22,37 +32,58 @@ import torch
 from qilaplace_tpu_torch.ops import jacobi as tj
 from qilaplace_tpu_torch.ops import jacobi_kernels as jk
 
-MAX_THREADS = 1024  # the kernel's __launch_bounds__
+SOURCE = (Path(jk.__file__).parents[1] / "csrc" / jk.SOURCE).read_text()
+CONSTS = {k: int(v) for k, v in
+          re.findall(r"constexpr int (\w+) = (\d+);", SOURCE)}
+MAX_THREADS = 1024  # the kernels' __launch_bounds__
+PAIRS_PER_BLOCK = 10  # a cluster block's column pairs, aimed at
+MAX_CLUSTER = 8
 
 
-def geometry(m):
-    """The kernel's launch geometry (``row_pairs``): the fewest row pairs
-    J a thread such that c * ceil(c / J) threads, rounded up to whole warps,
-    plus c rotation makers in whole warps fit in a block. Returns
-    (c, Y, J, threads) and the (I, K) blocks the round loops of threads
-    tid = y * c + K (y < Y) visit."""
+def geometry(m, w=None, k=0):
+    """The kernel's launch geometry (``row_pairs``) for block k of w column
+    pairs (w = c: one block a matrix): the fewest row pairs J a thread such
+    that w * ceil(c / J) threads, rounded up to whole warps, plus w rotation
+    makers in whole warps fit in a block. Returns (c, Y, J, threads) and the
+    (I, K) blocks the round loops of threads tid = y * w + K (y < Y, K
+    below the block's own count of pairs) visit, K as a column pair of the
+    matrix."""
     c = m // 2
-    makers = -(-c // 32) * 32
-    J = -(-c * c // MAX_THREADS)
+    w = c if w is None else w
+    wk = min(w, c - k * w)
+    makers = -(-w // 32) * 32
+    J = -(-c * w // MAX_THREADS)
     while True:
         Y = -(-c // J)
-        threads = -(-c * Y // 32) * 32 + makers
+        threads = -(-w * Y // 32) * 32 + makers
         if threads <= MAX_THREADS:
             break
         J += 1
     blocks = []
     for tid in range(threads - makers):
-        K, y = tid % c, tid // c
-        blocks += [(y + j * Y, K) for j in range(J) if y < Y and y + j * Y < c]
+        K, y = tid % w, tid // w
+        if y < Y and K < wk:
+            blocks += [(y + j * Y, k * w + K) for j in range(J)
+                       if y + j * Y < c]
     return (c, Y, J, threads), blocks
 
 
+def cluster_shape(m):
+    """(nb, w) as ``cluster_shape`` picks them: about PAIRS_PER_BLOCK
+    column pairs a block, at most MAX_CLUSTER blocks, and no empty block."""
+    c = m // 2
+    w = -(-c // min(-(-c // PAIRS_PER_BLOCK), MAX_CLUSTER))
+    return -(-c // w), w
+
+
 def test_constants_match_the_cuda_source():
-    src = (Path(jk.__file__).parents[1] / "csrc" / jk.SOURCE).read_text()
-    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
-    assert int(consts["MAX_M"]) == jk.MAX_M
-    assert int(consts["SMEM_MAX_M"]) == jk.SMEM_MAX_M
-    assert int(consts["MAX_THREADS"]) == MAX_THREADS
+    assert CONSTS["MAX_M"] == jk.MAX_M
+    assert CONSTS["SMEM_MAX_M"] == jk.SMEM_MAX_M
+    assert CONSTS["CLUSTER_MAX_M"] == jk.CLUSTER_MAX_M
+    assert CONSTS["MAX_THREADS"] == MAX_THREADS
+    assert CONSTS["PAIRS_PER_BLOCK"] == PAIRS_PER_BLOCK
+    assert CONSTS["MAX_CLUSTER"] == MAX_CLUSTER
+    assert jk.SMEM_MAX_M < jk.CLUSTER_MAX_M < jk.MAX_M
 
 
 @pytest.mark.parametrize("m", [2, 4, 24, 40, 56, 80, 96, 122, 256, 512])
@@ -75,13 +106,31 @@ def test_position_moves_replay_the_tournament(m):
     assert np.array_equal(arr, np.arange(m))  # identity after m - 1 rounds
 
 
-@pytest.mark.parametrize("m", [2, 24, 40, 56, 80, 84, 86, 256, 512])
+@pytest.mark.parametrize("m", [2, 24, 40, 56, 80, 84, 86, 96, 128, 160, 256,
+                               288, 320, 322, 512])
 def test_thread_geometry_covers_every_block_once(m):
-    (c, Y, J, threads), blocks = geometry(m)
-    assert threads <= MAX_THREADS and threads % 32 == 0
+    c = m // 2
+    if jk.SMEM_MAX_M < m <= jk.CLUSTER_MAX_M:
+        nb, w = cluster_shape(m)
+        assert nb <= MAX_CLUSTER and nb * w >= c > (nb - 1) * w
+    else:
+        nb, w = 1, c
+    blocks = []
+    for k in range(nb):
+        (_, Y, J, threads), own = geometry(m, w, k)
+        assert threads <= MAX_THREADS and threads % 32 == 0
+        assert all(k * w <= K < (k + 1) * w for _, K in own)
+        blocks += own
     assert sorted(blocks) == [(I, K) for I in range(c) for K in range(c)]
-    # one row pair a thread up to m = 56, two on the rest of the QFT path
-    assert J == (1 if m <= 56 else 2) if m <= 84 else J >= 2
+    if m <= jk.SMEM_MAX_M:
+        # one row pair a thread up to m = 56, two on the rest of the QFT path
+        assert J == (1 if m <= 56 else 2)
+    if m > jk.CLUSTER_MAX_M:  # the one-block code on device buffers
+        assert J >= 2
+    # the gate path's m = 160 and the largest complex64 solve below cutoff
+    # 1e-10, m = 288, both on clusters of 8
+    if m in (160, 288):
+        assert nb == MAX_CLUSTER
 
 
 def slot(p, c):
@@ -176,6 +225,182 @@ def test_emulated_rounds_match_the_plain_version(m, sweeps, complex_):
     lam_p, V_p = tj.jacobi_eigh(Ht, sweeps=sweeps)
     scale = float(lam_p.abs().max())
     assert np.abs(lam - lam_p.numpy()).max() / scale <= jk.tolerance(m)
+    got = jk.figures(Ht, torch.from_numpy(lam.astype(np.float32)),
+                     torch.from_numpy(V))
+    plain = jk.figures(Ht, lam_p, V_p)
+    for k, v in got.items():
+        assert v <= jk.rounding_bar(m, plain[k]), (k, v, plain[k])
+
+
+def slot_block(s, c, w):
+    """The cluster block that owns column slot s, and the slot's column in
+    that block's rows of 2w (its w even slots, then its odd)."""
+    K = s if s < c else s - c
+    return K // w, K % w + (0 if s < c else w)
+
+
+def maker_block(i, m, w, src):
+    """The block that makes pair i's rotations (``maker_block``): the one
+    holding a column of i's next diagonal block (the columns of pairs A and
+    B, whose positions move to i's) that crossed a block edge in the last
+    round, else i's owner. Raises where two crossed columns lie in two
+    blocks."""
+    c = m // 2
+    at = None
+    for P in (src[2 * i] >> 1, src[2 * i + 1] >> 1):
+        for pos in (2 * P, 2 * P + 1):
+            held = slot_block(slot(pos, c), c, w)[0]
+            if held != (src[pos] >> 1) // w:  # another block's owner wrote it
+                assert at in (None, held), f"m={m}: pair {i}"
+                at = held
+    return i // w if at is None else at
+
+
+@pytest.mark.parametrize("m", [86, 96, 128, 160, 288, 320])
+def test_cluster_edges_one_column_each_way(m):
+    """Each cluster block stores at most one column into each neighbour and
+    none further; every pair's maker lies in its owner's block or a
+    neighbour's, and no block makes more than one warp's worth of pairs:
+    what ``maker_block`` and the kernel's maker warp assume."""
+    c = m // 2
+    nb, w = cluster_shape(m)
+    dst = np.asarray(jk.position_moves(m))
+    src = np.argsort(dst)
+    for k in range(nb):
+        owned = range(k * w, min(c, (k + 1) * w))
+        out = [slot_block(slot(dst[2 * K + e], c), c, w)[0]
+               for K in owned for e in (0, 1)]
+        far = sorted(b for b in out if b != k)
+        assert far == sorted(set(far)) and all(abs(b - k) == 1 for b in far)
+    makers = [maker_block(i, m, w, src) for i in range(c)]
+    assert all(abs(mk - i // w) <= 1 for i, mk in enumerate(makers))
+    assert max(makers.count(k) for k in range(nb)) <= min(32, w + 2)
+
+
+def cluster_emulate(H, sweeps):
+    """The cluster variant's rounds in numpy, in its storage: block k holds
+    rows 0..m-1 of the slots of its column pairs [k w, k w + wk) (nb, w from
+    ``cluster_shape``), twice; an owner stores its two output columns in the
+    buffers of the blocks that own their next slots; the maker of pair i,
+    in block ``maker_block(i)``, reads its pairs' diagonal blocks from the
+    blocks that hold them, a column that crossed an edge in the last round
+    only in its own block (it is still in flight for every other), and
+    writes the next rotation into every block's table and into the log.
+    Then the vector pass: V = I in slots, every round's logged rotations
+    applied to every row. Returns the eigenvalues ascending and V in their
+    order, and the log."""
+    m = H.shape[-1]
+    c = m // 2
+    nb, w = cluster_shape(m)
+    L = 2 * w
+    dst = np.asarray(jk.position_moves(m))
+    src = np.argsort(dst)
+    rounds = sweeps * (m - 1)
+    owned = [range(k * w, min(c, (k + 1) * w)) for k in range(nb)]
+    made = [[i for i in range(c) if maker_block(i, m, w, src) == k]
+            for k in range(nb)]
+    G = [np.zeros((m, L), H.dtype) for _ in range(nb)]
+    for k in range(nb):
+        for K in owned[k]:
+            G[k][:, K - k * w] = H[:, 2 * K]
+            G[k][:, K - k * w + w] = H[:, 2 * K + 1]
+    pair = np.arange(c)
+    rot = rotation(H[2 * pair, 2 * pair].real, H[2 * pair + 1, 2 * pair + 1].real,
+                   H[2 * pair, 2 * pair + 1])
+    R = [rot] * nb  # every block makes round 0's rotations itself
+    log = [rot]
+    I = np.arange(c)
+    p, q = 2 * I, 2 * I + 1
+    # each block's columns that another block stored there by st.async in
+    # the last round: only the holder's own wait orders them
+    inbound = [set() for _ in range(nb)]
+
+    def gather(rows, slots, k=None):
+        """G at (row, slot) pairs, each from the block that holds the slot;
+        as block k's makers read it, when k is given"""
+        out = np.empty(len(rows), H.dtype)
+        for j, (row, s) in enumerate(zip(rows, slots)):
+            kb, lb = slot_block(s, c, w)
+            assert k is None or kb == k or lb not in inbound[kb], "in flight"
+            out[j] = G[kb][row, lb]
+        return out
+
+    def entry_at(P, Q, s, t, k):
+        """entry (s, t) of J_P^H G[P, Q] J_Q for arrays of pairs, as
+        block k's makers compute it from the blocks that hold Q"""
+        (cP, zP), (cQ, zQ) = ((R[k][0][X], R[k][1][X]) for X in (P, Q))
+        x00, x10 = left(cP, zP, gather(2 * P, Q, k), gather(2 * P + 1, Q, k))
+        x01, x11 = left(cP, zP, gather(2 * P, c + Q, k),
+                        gather(2 * P + 1, c + Q, k))
+        y = right(cQ, zQ, np.where(s, x10, x00), np.where(s, x11, x01))
+        return np.where(t, y[1], y[0])
+
+    for r in range(rounds):
+        if r + 1 < rounds:  # the makers of each block
+            nxt = np.empty((3, c), H.dtype)
+            for k in range(nb):
+                i = np.asarray(made[k], dtype=int)
+                a, bb = src[2 * i], src[2 * i + 1]
+                A, sa, B, sb = a >> 1, a & 1, bb >> 1, bb & 1
+                nxt[:, i] = (entry_at(A, A, sa, sa, k), entry_at(B, B, sb, sb, k),
+                             entry_at(A, B, sa, sb, k))
+        Gn = [np.empty_like(g) for g in G]
+        inbound = [set() for _ in range(nb)]
+        for k in range(nb):
+            c0, z = R[k]
+            for K in owned[k]:
+                lk = K - k * w
+                x0, xq0 = left(c0[I], z[I], G[k][p, lk], G[k][q, lk])
+                x1, xq1 = left(c0[I], z[I], G[k][p, lk + w], G[k][q, lk + w])
+                ys = right(c0[K], z[K], x0, x1), right(c0[K], z[K], xq0, xq1)
+                for e in (0, 1):
+                    held, col = slot_block(slot(dst[2 * K + e], c), c, w)
+                    Gn[held][dst[p], col] = ys[0][e]
+                    Gn[held][dst[q], col] = ys[1][e]
+                    if held != k:
+                        inbound[held].add(col)
+        G = Gn
+        if r + 1 < rounds:
+            d0, d1, wv = nxt
+            # what the makers rebuilt is what the update wrote
+            even, odd = slot(2 * pair, c), slot(2 * pair + 1, c)
+            assert np.array_equal(d0, gather(2 * pair, even))
+            assert np.array_equal(d1, gather(2 * pair + 1, odd))
+            assert np.array_equal(wv, gather(2 * pair, odd))
+            rot = rotation(d0.real, d1.real, wv)
+            R = [rot] * nb
+            log.append(rot)
+    diag = np.array([G[kb][j, lb].real for j in range(m)
+                     for kb, lb in [slot_block(slot(j, c), c, w)]])
+    # the vector pass: every row from the log alone
+    cols = slot(np.arange(m), c)
+    K = np.arange(c)
+    s0, s1 = slot(dst[2 * K], c), slot(dst[2 * K + 1], c)
+    V = np.zeros_like(H)
+    V[np.arange(m), cols] = 1
+    for c0, z in log[:rounds]:
+        Vn = np.empty_like(V)
+        Vn[:, s0], Vn[:, s1] = right(c0, z, V[:, K], V[:, c + K])
+        V = Vn
+    order = np.argsort(diag, kind="stable")
+    return diag[order], V[:, cols[order]], log
+
+
+@pytest.mark.parametrize("complex_", [True, False])
+@pytest.mark.parametrize("m", [96, 160])
+def test_cluster_emulation_matches_the_one_block_rounds(m, complex_):
+    rng = np.random.default_rng(m + 7 * complex_)
+    A = rng.normal(size=(m, m)) + (1j * rng.normal(size=(m, m)) if complex_ else 0)
+    H = ((A + np.conj(A.T)) / 2).astype(np.complex64 if complex_ else np.float32)
+    lam, V, log = cluster_emulate(H, 1)
+    assert len(log) == m - 1 and V.dtype == H.dtype
+    lam_1, V_1 = emulate(H, 1)  # the same arithmetic in one block's storage
+    assert np.array_equal(lam, lam_1) and np.array_equal(V, V_1)
+    # one sweep leaves the eigenvalues unconverged, where the CPU's other
+    # rounding moves them further than tolerance(m): the figures are held
+    # to rounding_bar, twice the plain version's own
+    Ht = torch.from_numpy(H)
+    lam_p, V_p = tj.jacobi_eigh(Ht, sweeps=1)
     got = jk.figures(Ht, torch.from_numpy(lam.astype(np.float32)),
                      torch.from_numpy(V))
     plain = jk.figures(Ht, lam_p, V_p)

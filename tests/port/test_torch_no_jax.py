@@ -39,10 +39,17 @@ def test_port_imports_without_jax():
     assert "IMPORT_OK" in proc.stdout
 
 
+# what runs on the card's machine, which has no JAX: the smoke run, the
+# GPU test modules and the kernel-variant scripts
+CARD_FILES = [Path(REPO, "chip_smoke.py"),
+              Path(REPO, "tests", "port", "port_helpers.py"),
+              Path(REPO, "tests", "port", "test_torch_readout_routes.py"),
+              *sorted(Path(REPO, "tests", "port").glob("test_torch_*_gpu.py")),
+              *sorted(Path(REPO, "scripts", "port").glob("k*_variants.py"))]
+
+
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [Path(REPO, "chip_smoke.py"),
-                          Path(REPO, "tests", "port", "port_helpers.py")],
-    ids=lambda p: os.path.relpath(p, REPO))
+    "path", PORT_FILES + CARD_FILES, ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_import_anywhere_in_the_source(path):
     """Also the imports inside functions, which importing never runs."""
     for node in ast.walk(ast.parse(path.read_text())):
