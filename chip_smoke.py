@@ -119,8 +119,45 @@ checks them:
 13. trace    one n=20 gate build under torch.profiler, as in 9, with
              device activity only.
 
-Every gate phase sets the counts to 0 just before it, reads them just
-after and fails if the plain Jacobi solver ran on the card.
+14. batch    the batched QFT path (qilaplace_tpu_torch.parallel):
+             batched_qft_pipeline over 8 signals x_j = sin(a_b j),
+             a_b = (b + 1) / N, at n=28 (8 x 1 GiB float32, made on the
+             card), through shard_batch on a mesh of this card, W =
+             build_qft_mpo(28, chi=64, cutoff=1e-9) in complex64
+             replicated, chi 64, cutoff 1e-9, phase 7's 4096 frequencies;
+             each row against its closed form (bar 0.1) and against the
+             one-signal path coefficient_batch(apply(W, signal_mps(x_b)))
+             on the card (relative to the peak, bar 1e-3); K2's launches
+             over the batch must equal those over one signal, each with
+             B = 8; wall time of the batch (before and after the loop)
+             against the 8 one-signal runs, max_memory_allocated; then K2
+             against its plain version, as in 4, at every shape the batch
+             launched, and K2's cluster variant at m = 128 with a
+             different matrix in each of 8 slots (c64 and f32): eigenvalues
+             bit-identical to the plain version, each slot equal to its
+             matrix launched alone;
+15. multi    the reference runner's multi-operator scan
+             (scripts/benchmark/batched_scan.py): n=30 cross encode at
+             1e-12 / maxdim 128 then tighten, 8 analytic operators at
+             wr = 2 pi (1 + i / 8) (zt_product_pack, mpo_from_pack,
+             complex64), stack_mpos, scan_configs(30, 4096);
+             multi_mpo_chi_batch against the 8 apply_coefficient_batch
+             calls (relative to the peak, bar 1e-5) and sharded_multi_scan
+             on a mesh of this card equal to it; one scan against the
+             stacked scan, CUDA events, median of 3;
+16. entries  qilaplace_tpu_torch.entry: entry() built and its step run
+             once (256 finite float32 values), then
+             dryrun_multichip(torch.cuda.device_count()) (the fit step
+             descends, the grid-sharded readout, the n=10 multi-operator
+             scan's peaks on the signal's line).
+
+K2 is timed (as in 8) at every shape the batched phase launched, beside
+its plain version and the batched torch.linalg.eigh ("batched_shapes" in
+K2's line).
+
+Every gate, batched and entry phase sets the counts to 0 just before it,
+reads them just after and fails if the plain Jacobi solver ran on the
+card.
 
 Every failure raises. Without a CUDA device the script exits nonzero at
 once. The last line of stdout is one JSON object naming the device.
@@ -163,7 +200,15 @@ GRID = 64            # the n=30 gate read: a GRID x GRID chi_grid
 # complex64 solve below cutoff 1e-10 and the real variant, (m, B, complex,
 # sweeps)
 CLUSTER_SHAPES = ((288, 1, True, 7), (160, 1, False, 6))
+# K2 on the QFT path (m, B, complex, sweeps): the build's two-site polish
+# (first: the "kernels" line's K2 record) and the sketch and encode solves
+QFT_K2_SHAPES = [(24, 1, True, 5), (40, 1, True, 6), (80, 1, True, 6),
+                 (56, 8, False, 6)]
 ROUTE_BITS = 8       # the readout-routes phase
+BATCH = 8            # the batched QFT phase: signals in one batch
+BATCH_BAR = 1e-3     # batched rows vs the one-signal path, rel to the peak
+N_OPS = 8            # the multi-operator scan: stacked operators
+MULTI_BAR = 1e-5     # stacked scan vs single scans, rel to the peak
 PEAK_FP32 = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s
 
@@ -641,6 +686,35 @@ def phase_k2_cluster_stress(dev, repeats=3):
     return worst
 
 
+def phase_k2_batch_slots(dev):
+    """K2's cluster variant with a different matrix in each of BATCH slots
+    (m = 128, c64 at 6 sweeps and f32 at 4): eigenvalues against the plain
+    version as in 4 (bit-identical, gated), and every slot equal to its
+    matrix launched alone. Returns the eigenvalues' max abs error."""
+    from qilaplace_tpu_torch.ops import jacobi_kernels as jk
+
+    rng = np.random.default_rng(2029)
+    worst = 0.0
+    for cplx, sweeps in ((True, 6), (False, 4)):
+        H = torch.from_numpy(hermitian(rng, BATCH, 128, complex_=cplx)).to(dev)
+        name = f"{'c64' if cplx else 'f32'} m=128 B={BATCH} sweeps={sweeps}"
+        worst = max(worst, k2_case(f"{name}, distinct slots", H, sweeps))
+        lam, V = jk.jacobi_eigh_k2(H, sweeps=sweeps)
+        lam_p, _ = jk.jacobi_eigh_k2_reference(H, sweeps=sweeps)
+        alone = [jk.jacobi_eigh_k2(H[b:b + 1], sweeps=sweeps)
+                 for b in range(BATCH)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(lam[b], a[0][0]) and torch.equal(V[b], a[1][0])
+                   for b, a in enumerate(alone))
+        log(f"[k2] {name}: every slot equal to its matrix alone: {same}; "
+            f"eigenvalues bit-identical to plain: "
+            f"{bool(torch.equal(lam, lam_p))}")
+        check(same, f"K2 {name}: a slot differs from its matrix alone")
+        check(torch.equal(lam, lam_p),
+              f"K2 {name}: eigenvalues differ from the plain version")
+    return worst
+
+
 def phase_k2_path_shapes(dev, shapes):
     """K2 against its plain version at every (m, B, dtype, sweeps) the QFT
     path launched it with."""
@@ -727,22 +801,17 @@ def phase_readout_routes(dev):
         check(err <= K1_TOL, f"spectrum c64 chi 264: {err:.3e}")
 
 
-def phase_k2_timing(smi, extra=()):
-    """K2 against its plain version and torch.linalg.eigh at the QFT path's
-    shapes and the ``extra`` (m, B, complex, sweeps) shapes, in turns;
-    returns one record per shape."""
-    from qilaplace_tpu_torch.ops.jacobi import fast_sweeps
+def phase_k2_timing(smi, shapes):
+    """K2 against its plain version and torch.linalg.eigh at each distinct
+    (m, B, complex, sweeps) of ``shapes``, in turns; returns one record per
+    shape."""
     from qilaplace_tpu_torch.ops.jacobi_kernels import (
         jacobi_eigh_k2,
         jacobi_eigh_k2_reference,
     )
 
     rng = np.random.default_rng(7)
-    shapes = [(24, 1, True, 5), (40, 1, True, fast_sweeps(40)),
-              (80, 1, True, fast_sweeps(80)), (56, 8, False, fast_sweeps(56))]
-    for sh in extra:
-        if sh not in shapes:
-            shapes.append(sh)
+    shapes = list(dict.fromkeys(shapes))
     out = []
     for m, B, cplx, sweeps in shapes:
         H = torch.from_numpy(hermitian(rng, B, m, complex_=cplx)).to("cuda")
@@ -785,19 +854,19 @@ def phase_k2_timing(smi, extra=()):
 
 # ------------------------------ QFT path ------------------------------------
 
-def sin_spectrum(n, ks):
-    """Unitary DFT X_k of x_j = sin(a j), a = 1/N, in closed form (float64):
-    N^-1/2 (G(a - 2 pi k/N) - G(-a - 2 pi k/N)) / 2i with
-    G(t) = (1 - e^{i t N}) / (1 - e^{i t}). Since t N = +-1 - 2 pi k, the
-    numerators are 1 - e^{+-i}; 1 - e^{i t} = -2i sin(t/2) e^{i t/2} keeps
-    the small denominators accurate."""
+def sin_spectrum(n, ks, c=1):
+    """Unitary DFT X_k of x_j = sin(a j), a = c/N (c a whole number), in
+    closed form (float64): N^-1/2 (G(a - 2 pi k/N) - G(-a - 2 pi k/N)) / 2i
+    with G(t) = (1 - e^{i t N}) / (1 - e^{i t}). Since t N = +-c - 2 pi k,
+    the numerators are 1 - e^{+-i c}; 1 - e^{i t} = -2i sin(t/2) e^{i t/2}
+    keeps the small denominators accurate."""
     N = 2**n
     ks = np.asarray(ks, dtype=np.float64)
 
     def G(sign):
-        t = sign / N - 2 * np.pi * (ks / N)
+        t = sign * c / N - 2 * np.pi * (ks / N)
         den = -2j * np.sin(t / 2) * np.exp(1j * t / 2)
-        return (1 - np.exp(1j * sign)) / den
+        return (1 - np.exp(1j * sign * c)) / den
 
     return (G(1.0) - G(-1.0)) / (2j * np.sqrt(N))
 
@@ -1151,6 +1220,223 @@ def phase_gate_n30(dev):
     return counts, (chain, cfg)
 
 
+# ------------------------------ batched path --------------------------------
+
+def sin_batch_on_card(n, dev, chunk=2**26):
+    """BATCH signals x_{b,j} = sin(a_b j), a_b = (b + 1) / N, float32
+    [BATCH, N] made on the card, evaluated in float64 a chunk at a time."""
+    N = 2**n
+    x = torch.empty(BATCH, N, dtype=torch.float32, device=dev)
+    for lo in range(0, N, chunk):
+        j = torch.arange(lo, min(N, lo + chunk), dtype=torch.float64,
+                         device=dev)
+        a = torch.arange(1, BATCH + 1, dtype=torch.float64,
+                         device=dev)[:, None] / N
+        x[:, lo:lo + j.numel()] = torch.sin(a * j)
+    return x
+
+
+def phase_batched_qft(dev, smi, n=QFT_BITS):
+    """The batched QFT path: batched_qft_pipeline over BATCH signals
+    (shard_batch on a mesh of this card, W replicated) at n=28, chi 64,
+    cutoff 1e-9, W = build_qft_mpo(28, chi=64, cutoff=1e-9) in complex64,
+    read at phase 7's 4096 frequencies. Each row against its closed form
+    (bar QFT_BARS[28]) and against the one-signal path
+    coefficient_batch(apply(W, signal_mps(x_b))) on the card (relative to
+    the peak, bar BATCH_BAR); K2's launches over the batch must equal those
+    over one signal, each with B = BATCH. Returns the batch's counts, the
+    one signal's counts and the figures logged."""
+    import qilaplace_tpu_torch as qt
+    from qilaplace_tpu_torch.parallel import (
+        batched_qft_pipeline,
+        make_mesh,
+        replicate,
+        shard_batch,
+    )
+    from qilaplace_tpu_torch.utils.bits import tensor_int_to_bits
+
+    ks = qft_freqs(n)
+    configs = tensor_int_to_bits(torch.from_numpy(ks).to(dev), n,
+                                 order="lsb").to(torch.int32)
+    reset_counts()
+    W, t_build = synced(lambda: qt.build_qft_mpo(
+        n, chi=QFT_CHI, cutoff=QFT_CUTOFF, dtype=torch.complex64, device=dev))
+    build_counts = read_counts()
+    xs, t_sig = synced(lambda: sin_batch_on_card(n, dev))
+
+    def one_signal(x):
+        psi = qt.signal_mps(x, cutoff=QFT_CUTOFF, chi=QFT_CHI, device=dev)
+        out = qt.apply(W, psi, maxdim=QFT_CHI, cutoff=QFT_CUTOFF)
+        return qt.coefficient_batch(out, configs)
+
+    mesh = make_mesh(1, devices=[dev])
+    W_repl = replicate(mesh, W)
+    xs_sharded = shard_batch(mesh, xs)
+
+    def batch():
+        return batched_qft_pipeline(W_repl, xs_sharded, configs, chi=QFT_CHI,
+                                    cutoff=QFT_CUTOFF)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    got, t_batch = synced(batch)
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    rows, loop_s, one_counts = [], [], None
+    for b in range(BATCH):
+        if b == 0:
+            reset_counts()
+        row, secs = synced(lambda: one_signal(xs[b]))
+        if b == 0:
+            one_counts = read_counts()
+        rows.append(row)
+        loop_s.append(secs)
+    _, t_batch2 = synced(batch)
+    ref = torch.stack(rows)
+    check(got.shape == (BATCH, len(ks)), "batched QFT readout shape")
+    check(bool(torch.isfinite(torch.view_as_real(got)).all()),
+          "batched QFT readout not finite")
+    got_np = got.cpu().numpy().astype(np.complex128)
+    closed = [float(np.abs(got_np[b] - sin_spectrum(n, ks, b + 1)).max()
+                    / np.abs(sin_spectrum(n, ks, b + 1)).max())
+              for b in range(BATCH)]
+    vs_one = [float((got[b] - ref[b]).abs().max() / ref[b].abs().max())
+              for b in range(BATCH)]
+    log(f"[batch] n={n} B={BATCH}: build_qft_mpo(chi {QFT_CHI}, cutoff "
+        f"{QFT_CUTOFF:g}, complex64) {t_build:.4f} s (bond "
+        f"{qt.max_bond(W)}, K2 {build_counts['k2']}); signals {t_sig:.4f} "
+        f"s (not counted)")
+    log(f"[batch] batched_qft_pipeline {t_batch:.4f} s and {t_batch2:.4f} s "
+        f"(after the loop) against 8 one-signal runs {sum(loop_s):.4f} s "
+        f"({', '.join(f'{t:.4f}' for t in loop_s)}); "
+        f"max_memory_allocated {peak_gib:.2f} GiB; card {smi}")
+    log(f"[batch] max_err_rel_peak per row vs the closed form: "
+        + ", ".join(f"{e:.3e}" for e in closed) + f" (bar {QFT_BARS[n]:g}); "
+        "vs the one-signal path: " + ", ".join(f"{e:.3e}" for e in vs_one)
+        + f" (bar {BATCH_BAR:g})")
+    log_counts("batch", counts)
+    log_counts("batch one signal", one_counts)
+    check(counts["k2"] > 0, "the batched QFT path never launched K2")
+    check(counts["k2"] == one_counts["k2"],
+          f"K2 launches: batch {counts['k2']} != one signal "
+          f"{one_counts['k2']}")
+    check(all(key[1] == BATCH for key in counts["k2_by_shape"]),
+          "a batched K2 launch without the whole batch")
+    check(max(closed) <= QFT_BARS[n],
+          f"batched QFT vs closed form {max(closed):.3e}")
+    check(max(vs_one) <= BATCH_BAR,
+          f"batched QFT vs one-signal path {max(vs_one):.3e}")
+    del xs, xs_sharded, rows, ref, got
+    torch.cuda.empty_cache()
+    return counts, one_counts, dict(
+        batch_s=t_batch, batch2_s=t_batch2, loop_s=sum(loop_s),
+        peak_gib=peak_gib, max_err_closed=max(closed),
+        max_err_one=max(vs_one))
+
+
+def scan_configs(n, count, seed=0):
+    """The reference runner's uniform scan configurations
+    (scripts/benchmark/batched_scan.py): interleaved LSB-first (k, l)."""
+    rng = np.random.default_rng(seed)
+    N = 2**n
+    ks = rng.integers(0, N, count)
+    ls = rng.integers(0, N, count)
+    kb = ((ks[:, None] >> np.arange(n)) & 1).astype(np.int32)
+    lb = ((ls[:, None] >> np.arange(n)) & 1).astype(np.int32)
+    return np.stack([kb, lb], axis=2).reshape(count, 2 * n)
+
+
+def phase_multi_scan(dev, smi, n=N_BITS):
+    """The reference runner's multi-operator scan at n=30: cross encode at
+    1e-12 / maxdim 128 then tighten, N_OPS analytic operators at
+    wr = 2 pi (1 + i / N_OPS) (zt_product_pack, mpo_from_pack, complex64),
+    stack_mpos, 4096 configurations of scan_configs(30, 4096). The stacked
+    readout against each operator's own apply_coefficient_batch (relative
+    to the peak, bar MULTI_BAR) and sharded_multi_scan on a mesh of this
+    card equal to it; single against stacked, CUDA events, median of 3."""
+    import qilaplace_tpu_torch as qt
+    from qilaplace_tpu_torch.parallel import (
+        make_mesh,
+        multi_mpo_chi_batch,
+        sharded_multi_scan,
+        stack_mpos,
+    )
+
+    psi = qt.tighten(qt.signal_ztmps_cross(
+        sin_decay_fn(n), cutoff=CUTOFF, maxdim=CHI, device="cpu"))
+    psi = psi.to(dev, torch.float32)
+    t0 = time.perf_counter()
+    packs = [qt.zt_product_pack(n, 2 * math.pi * (1 + i / N_OPS),
+                                cutoff=CUTOFF, maxdim=CHI)
+             for i in range(N_OPS)]
+    t_packs = time.perf_counter() - t0
+    Ws = [qt.mpo_from_pack(p, device=dev, dtype=torch.complex64)
+          for p in packs]
+    stacked = stack_mpos(Ws)
+    cfg = torch.from_numpy(scan_configs(n, N_SCAN)).to(dev)
+    reset_counts()
+    multi, _ = synced(lambda: multi_mpo_chi_batch(stacked, psi, cfg))
+    counts = read_counts()
+    singles = [qt.apply_coefficient_batch(W, psi, cfg) for W in Ws]
+    errs = [float((multi[i] - s).abs().max() / s.abs().max())
+            for i, s in enumerate(singles)]
+    sharded = sharded_multi_scan(make_mesh(1, devices=[dev]), stacked, psi,
+                                 cfg)
+    torch.cuda.synchronize()
+    fns = {"single": lambda: qt.apply_coefficient_batch(Ws[0], psi, cfg),
+           "multi": lambda: multi_mpo_chi_batch(stacked, psi, cfg)}
+    ms = {k: [] for k in fns}
+    for _ in range(3):  # in turns
+        for k in ("single", "multi", "multi", "single"):
+            ms[k].append(event_ms(fns[k], reps=1))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    per_scan = med["multi"] / N_OPS
+    log(f"[multi] n={n}: {N_OPS} operators (bonds "
+        f"{[qt.max_bond(W) for W in Ws]}, chi {stacked.chain.chi}), psi "
+        f"rank {qt.max_bond(psi)} (chi {psi.chain.chi}), {N_SCAN} configs; "
+        f"host packs {t_packs:.4f} s")
+    log(f"[multi] stacked vs single per operator, rel to peak: "
+        + ", ".join(f"{e:.3e}" for e in errs) + f" (bar {MULTI_BAR:g}); "
+        f"sharded on one card equal: {bool(torch.equal(sharded, multi))}")
+    log(f"[multi] single scan {med['single']:.4f} ms "
+        f"({1e3 * med['single'] / N_SCAN:.4f} us a point); stacked "
+        f"{med['multi']:.4f} ms for {N_OPS}: {per_scan:.4f} ms a scan "
+        f"({1e3 * per_scan / N_SCAN:.4f} us a point); CUDA events, median "
+        f"of 3; card {smi}")
+    log_counts("multi", counts)
+    check(multi.shape == (N_OPS, N_SCAN), "multi-operator scan shape")
+    check(bool(torch.isfinite(torch.view_as_real(multi)).all()),
+          "multi-operator scan not finite")
+    check(max(errs) <= MULTI_BAR,
+          f"stacked scan vs single {max(errs):.3e} > {MULTI_BAR:g}")
+    check(torch.equal(sharded, multi),
+          "sharded_multi_scan on one card differs from multi_mpo_chi_batch")
+    return dict(single_ms=med["single"], multi_ms=med["multi"],
+                per_scan_ms=per_scan, max_err=max(errs))
+
+
+def phase_entries(dev):
+    """The entry points: entry() built and run once, then
+    dryrun_multichip over every card."""
+    from qilaplace_tpu_torch.entry import dryrun_multichip, entry
+
+    reset_counts()
+    (fn, args), t_setup = synced(entry)
+    out, t_fn = synced(lambda: fn(*args))
+    counts = read_counts()
+    log(f"[entry] entry(): setup {t_setup:.4f} s, step {t_fn:.4f} s -> "
+        f"{tuple(out.shape)} {out.dtype}")
+    log_counts("entry", counts)
+    check(out.shape == (256,) and out.dtype == torch.float32,
+          "entry step shape or dtype")
+    check(bool(torch.isfinite(out).all()), "entry step not finite")
+    check(counts["k2"] > 0, "entry() never launched K2")
+    res, secs = synced(lambda: dryrun_multichip(torch.cuda.device_count()))
+    log(f"[entry] dryrun_multichip({torch.cuda.device_count()}) in "
+        f"{secs:.4f} s: loss {res['loss0']:.3e} -> {res['loss1']:.3e}, "
+        f"peaks {res['peaks']} (line l={res['l_line']})")
+
+
 def phase_gate_trace(dev, n=POLE_BITS):
     """One n=20 gate build (wr = 2 pi, cutoff 1e-9, chi 128) under
     torch.profiler: K2's device time, all kernels and the card's busy
@@ -1291,6 +1577,15 @@ def main():
     k2_err = max(k2_err, phase_k2_path_shapes(dev, new_shapes))
     mark("gate path")
 
+    # the batched path: each phase sets the counts to 0 just before it
+    batch_counts, one_counts, batch_figs = phase_batched_qft(dev, smi)
+    batch_shapes = set(batch_counts["k2_by_shape"])
+    k2_err = max(k2_err, phase_k2_path_shapes(dev, batch_shapes),
+                 phase_k2_batch_slots(dev))
+    multi = phase_multi_scan(dev, smi)
+    phase_entries(dev)
+    mark("batched path and entries")
+
     k1 = phase_timing(chain, configs, smi, "zT chain")
     k1_qft = phase_timing(*qft_read, smi, f"QFT n={QFT_BITS} readout chain")
     k1_gate = phase_timing(*n30_read, smi, "n=30 gate product chain")
@@ -1306,10 +1601,17 @@ def main():
                      if SMEM_MAX_M < sh[0] <= CLUSTER_MAX_M)
     top = ranked[:3] + [sh for sh in cluster if sh not in ranked[:3]]
     k2_times = phase_k2_timing(
-        smi, [(m, B, kind == "c64", sw) for m, B, kind, sw in top]
+        smi, QFT_K2_SHAPES + [(m, B, kind == "c64", sw)
+                              for m, B, kind, sw in top]
         + list(CLUSTER_SHAPES))
     device_memory = [dict(r, launches=gate_shapes.get(r["key"], 0))
                      for r in k2_times if SMEM_MAX_M < r["key"][0]]
+    # K2 at every shape the batched phase launched, beside its plain
+    # version and the batched torch.linalg.eigh
+    batched = [dict(r, launches=batch_counts["k2_by_shape"][r["key"]])
+               for r in phase_k2_timing(
+                   smi, [(m, B, kind == "c64", sw)
+                         for m, B, kind, sw in sorted(batch_shapes)])]
     mark("timing")
     phase_trace(dev)
     mark("QFT trace")
@@ -1370,6 +1672,13 @@ def main():
         "device_memory": [{k: r[k] for k in (
             "shape", "launches", "ms", "us_a_round", "plain_ms", "library_ms",
             "bound_ms", "bound_by")} for r in device_memory],
+        "launches_batched_qft": batch_counts["k2"],
+        "launches_one_signal": one_counts["k2"],
+        "batched_shapes": [{k: r[k] for k in (
+            "shape", "launches", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")} for r in batched],
+        "batched_qft": batch_figs,
+        "multi_scan": multi,
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -28,6 +28,9 @@ class MPO:
 
     cores: [n, chi, 2, 2, chi] with axes (left, s_out, s_in, right)
     ranks: [n+1] int32 valid bond dimensions, ranks[0] == ranks[n] == 1
+
+    A stack of operators (``parallel.stack_mpos``) carries the operator
+    axis first in both fields.
     """
 
     cores: torch.Tensor
@@ -35,11 +38,11 @@ class MPO:
 
     @property
     def n(self) -> int:
-        return self.cores.shape[0]
+        return self.cores.shape[-5]
 
     @property
     def chi(self) -> int:
-        return self.cores.shape[1]
+        return self.cores.shape[-1]
 
     @property
     def dtype(self) -> torch.dtype:

@@ -10,6 +10,11 @@ Layout is the JAX package's: all site tensors in one zero-padded stack
 ``ranks[0] == ranks[n] == 1``) and the original signal 2-norm in
 ``amplitude``. ``ZTMPS`` is a thin view of its interleaved 2n-site chain
 [main_1, copy_1, main_2, copy_2, ...].
+
+A batch of states is one container whose every field carries the leading
+batch axis (``cores [B, n, chi, 2, chi]``, ``ranks [B, n+1]``,
+``amplitude [B]``), the layout ``jax.vmap`` gives the JAX package's
+containers; ``coefficient_batch`` and the two-site sweep take it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ class MPS:
     ranks:     [n+1] int32, valid bond dimensions
     amplitude: scalar, the original signal 2-norm (the tensor data is
                unit-norm after encoding)
+
+    A batch of B states carries B first in every field.
     """
 
     cores: torch.Tensor
@@ -43,11 +50,11 @@ class MPS:
 
     @property
     def n(self) -> int:
-        return self.cores.shape[0]
+        return self.cores.shape[-4]
 
     @property
     def chi(self) -> int:
-        return self.cores.shape[1]
+        return self.cores.shape[-1]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -253,17 +260,20 @@ def coefficient(psi, config) -> torch.Tensor:
 
 def coefficient_batch(psi, configs) -> torch.Tensor:
     """Batched coefficient: ``configs`` [B, n] -> [B] amplitudes; at every
-    site both branch products are formed and each row keeps its bit's."""
+    site both branch products are formed and each row keeps its bit's. A
+    batch of states [S, ...] gives [S, B], as ``jax.vmap`` over the state
+    does."""
     m = _chain(psi)
     configs = torch.as_tensor(configs, device=m.device)
     B = configs.shape[0]
-    v = torch.zeros(B, m.chi, dtype=m.dtype, device=m.device)
-    v[:, 0] = 1
+    lead = m.cores.shape[:-4]
+    v = torch.zeros(*lead, B, m.chi, dtype=m.dtype, device=m.device)
+    v[..., 0] = 1
     for site in range(m.n):
-        core = m.cores[site]
+        core = m.cores.select(-4, site)
         sel = (configs[:, site] == 0)[:, None]
-        v = torch.where(sel, v @ core[:, 0, :], v @ core[:, 1, :])
-    return m.amplitude * v[:, 0]
+        v = torch.where(sel, v @ core[..., 0, :], v @ core[..., 1, :])
+    return m.amplitude[..., None] * v[..., 0]
 
 
 # ------------------------------ chi repadding ------------------------------
@@ -421,35 +431,41 @@ def canonicalize(psi, direction: str, *, center: int | None = None,
 def _two_site_sweep(cores, ranks, *, cutoff, maxdim, reverse: bool):
     """One truncating two-site SVD sweep (left to right unless
     ``reverse``). Generic in the physical dimension p (2 for MPS chains,
-    4 for MPO chains with fused (s_out, s_in) legs)."""
-    n, chi, p = cores.shape[0], cores.shape[1], cores.shape[2]
+    4 for MPO chains with fused (s_out, s_in) legs). Leading batch axes of
+    ``cores`` [..., n, chi, p, chi] and ``ranks`` [..., n+1] ride every
+    split, so a batch takes one eigensolve call per split."""
+    n, chi, p = cores.shape[-4], cores.shape[-3], cores.shape[-2]
+    lead = cores.shape[:-4]
     maxdim = min(maxdim, chi)
     bond_ranks = [None] * (n - 1)
     out = [None] * n
+    site = lambda i: cores.select(-4, i)  # noqa: E731
     if not reverse:
-        left = cores[0]
+        left = site(0)
         for i in range(1, n):
-            T = torch.einsum("lsa,atr->lstr", left, cores[i])
-            L, R, rank = svd_split(T.reshape(chi * p, p * chi), cutoff=cutoff,
-                                   maxdim=maxdim, absorb="right", out_dim=chi)
-            out[i - 1] = L.reshape(chi, p, chi)
+            T = torch.einsum("...lsa,...atr->...lstr", left, site(i))
+            L, R, rank = svd_split(T.reshape(*lead, chi * p, p * chi),
+                                   cutoff=cutoff, maxdim=maxdim,
+                                   absorb="right", out_dim=chi)
+            out[i - 1] = L.reshape(*lead, chi, p, chi)
             bond_ranks[i - 1] = rank
-            left = R.reshape(chi, p, chi)
+            left = R.reshape(*lead, chi, p, chi)
         out[n - 1] = left
     else:
-        right = cores[n - 1]
+        right = site(n - 1)
         for i in range(n - 2, -1, -1):
-            T = torch.einsum("lsa,atr->lstr", cores[i], right)
-            L, R, rank = svd_split(T.reshape(chi * p, p * chi), cutoff=cutoff,
-                                   maxdim=maxdim, absorb="left", out_dim=chi)
-            out[i + 1] = R.reshape(chi, p, chi)
+            T = torch.einsum("...lsa,...atr->...lstr", site(i), right)
+            L, R, rank = svd_split(T.reshape(*lead, chi * p, p * chi),
+                                   cutoff=cutoff, maxdim=maxdim,
+                                   absorb="left", out_dim=chi)
+            out[i + 1] = R.reshape(*lead, chi, p, chi)
             bond_ranks[i] = rank
-            right = L.reshape(chi, p, chi)
+            right = L.reshape(*lead, chi, p, chi)
         out[0] = right
     ranks = ranks.clone()
     if n > 1:
-        ranks[1:n] = torch.stack(bond_ranks)
-    return torch.stack(out), ranks
+        ranks[..., 1:n] = torch.stack(bond_ranks, dim=-1)
+    return torch.stack(out, dim=-4), ranks
 
 
 def compress(psi, *, maxdim: int | None = None, tol: float = 1e-12,

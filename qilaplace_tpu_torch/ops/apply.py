@@ -16,6 +16,12 @@ Counterpart of ``qilaplace_tpu/ops/apply.py``:
 
 Every truncation goes through ops/truncation.py, so on the card each of
 its eigensolves is a launch of kernel K2.
+
+``apply`` also takes a batch of states (every field with the batch axis
+first, core/mps.py) under one shared operator, and
+``apply_coefficient_batch`` a stack of operators (``parallel.stack_mpos``)
+over one shared state: the batch is an axis of every contraction and of
+every factorization, so a batch costs the launches of one state.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ def _unit_carry(chi_x: int, a: int, b: int, dtype, device) -> torch.Tensor:
 
 
 def _apply_exact(W: MPO, psi: MPS) -> MPS:
-    """Per-site contract and bond fuse; output chi = chiW * chiS."""
+    """Per-site contract and bond fuse; output chi = chiW * chiS. A batch
+    of states [..., n, ...] shares ``W``."""
     n = psi.n
     if W.n != n:
         raise ValueError(
@@ -54,10 +61,10 @@ def _apply_exact(W: MPO, psi: MPS) -> MPS:
             f"(got {W.n} and {n})"
         )
     dtype = torch.promote_types(W.dtype, psi.dtype)
-    out = torch.einsum("naoic,nbid->nabocd", W.cores.to(dtype),
+    out = torch.einsum("naoic,...nbid->...nabocd", W.cores.to(dtype),
                        psi.cores.to(dtype))
     chi_out = W.chi * psi.chi
-    return MPS(cores=out.reshape(n, chi_out, 2, chi_out),
+    return MPS(cores=out.reshape(*out.shape[:-5], chi_out, 2, chi_out),
                ranks=W.ranks * psi.ranks, amplitude=psi.amplitude)
 
 
@@ -72,9 +79,12 @@ def _apply_fused(W: MPO, psi: MPS, *, maxdim: int, cutoff: float,
     stages: the zip truncates against a non-orthonormal right environment,
     so working at 2 chi_out restores exact-apply accuracy for about twice
     the zip flops. The final forward polish sweep leaves ranks <= maxdim <=
-    chi_out in the leading block, so the closing slice is exact.
+    chi_out in the leading block, so the closing slice is exact. A batch
+    of states [..., n, ...] shares ``W``: the carry and every split carry
+    the batch axes.
     """
     n, chiW, chiS = psi.n, W.chi, psi.chi
+    lead = psi.cores.shape[:-4]
     if W.n != n:
         raise ValueError("apply: MPO and MPS must have the same number of sites")
     if chi_out is None:
@@ -95,8 +105,9 @@ def _apply_fused(W: MPO, psi: MPS, *, maxdim: int, cutoff: float,
         om = sketch_matrix(1234, chiW * chiS, chi_work, dtype, device=device)
     cores, bond_ranks = [], []
     for i in range(n - 1):
-        T = torch.einsum("xab,aoic,bid->xocd", C, Wc[i], Ac[i])
-        M = T.reshape(chi_work * 2, chiW * chiS)
+        T = torch.einsum("...xab,aoic,...bid->...xocd", C, Wc[i],
+                         Ac.select(-4, i))
+        M = T.reshape(*lead, chi_work * 2, chiW * chiS)
         if zip_mode == "range":
             L, R, rank = range_split(M, om)
             rank = torch.clamp(rank, max=maxdim)
@@ -104,18 +115,19 @@ def _apply_fused(W: MPO, psi: MPS, *, maxdim: int, cutoff: float,
             L, R, rank = svd_split(M, cutoff=cutoff, maxdim=chi_work,
                                    absorb="right", out_dim=chi_work,
                                    fast=fast or None)
-        cores.append(L.reshape(chi_work, 2, chi_work))
+        cores.append(L.reshape(*lead, chi_work, 2, chi_work))
         bond_ranks.append(rank)
-        C = R.reshape(chi_work, chiW, chiS)
+        C = R.reshape(*lead, chi_work, chiW, chiS)
     # last site: contract the remainder; the right boundary is index 0
-    last = torch.einsum("xab,aoic,bid->xocd", C, Wc[n - 1], Ac[n - 1])[:, :, 0, 0]
-    last_core = last.new_zeros(chi_work, 2, chi_work)
-    last_core[:, :, 0] = last
+    last = torch.einsum("...xab,aoic,...bid->...xocd", C, Wc[n - 1],
+                        Ac.select(-4, n - 1))[..., 0, 0]
+    last_core = last.new_zeros(*lead, chi_work, 2, chi_work)
+    last_core[..., 0] = last
     cores.append(last_core)
-    cores = torch.stack(cores)
-    ranks = torch.ones(n + 1, dtype=torch.int32, device=device)
+    cores = torch.stack(cores, dim=-4)
+    ranks = torch.ones(*lead, n + 1, dtype=torch.int32, device=device)
     if n > 1:
-        ranks[1:n] = torch.stack(bond_ranks)
+        ranks[..., 1:n] = torch.stack(bond_ranks, dim=-1)
 
     # a wider zip must be swept down before the closing slice
     sweeps = final_sweeps if chi_work == chi_out else max(final_sweeps, 1)
@@ -125,7 +137,7 @@ def _apply_fused(W: MPO, psi: MPS, *, maxdim: int, cutoff: float,
         cores, ranks = _two_site_sweep(cores, ranks, cutoff=cutoff,
                                        maxdim=maxdim, reverse=False)
     if chi_work > chi_out:
-        cores = cores[:, :chi_out, :, :chi_out].contiguous()
+        cores = cores[..., :chi_out, :, :chi_out].contiguous()
     return MPS(cores=cores, ranks=ranks, amplitude=psi.amplitude)
 
 
@@ -385,6 +397,10 @@ def apply_coefficient_batch(W, psi, configs) -> torch.Tensor:
     whole W core, a per-config output-bit select, then one contraction with
     the psi core over (psi bond, s). Roundoff stays relative to the running
     path product, which is what keeps f32 scans accurate near a pole.
+
+    A stack of operators [S, ...] (``parallel.stack_mpos``) gives [S, B]:
+    the stack is the leading axis of the environment and of each
+    contraction, as ``jax.vmap`` over the operator does.
     """
     wm = _mpo_chain(W)
     pm = _chain(psi)
@@ -392,17 +408,20 @@ def apply_coefficient_batch(W, psi, configs) -> torch.Tensor:
     configs = torch.as_tensor(configs, device=pm.device)
     B = configs.shape[0]
     cw, cp = wm.chi, pm.chi
-    v = torch.zeros(B, cw, cp, dtype=dtype, device=pm.device)
-    v[:, 0, 0] = 1
+    lead = wm.cores.shape[:-5]
+    v = torch.zeros(*lead, B, cw, cp, dtype=dtype, device=pm.device)
+    v[..., 0, 0] = 1
     for site in range(pm.n):
-        Wc = wm.cores[site].to(dtype)  # [cw, 2, 2, cw]
+        Wc = wm.cores.select(-5, site).to(dtype)  # [..., cw, 2, 2, cw]
         pc = pm.cores[site].to(dtype)  # [cp, 2, cp]
-        t = torch.einsum("Bab,aK->BbK", v, Wc.reshape(cw, 4 * cw))
-        t = t.reshape(B, cp, 2, 2, cw)
+        t = torch.einsum("...Bab,...aK->...BbK", v,
+                         Wc.reshape(*lead, cw, 4 * cw))
+        t = t.reshape(*lead, B, cp, 2, 2, cw)
         sel = (configs[:, site] == 0)[:, None, None, None]
-        t = torch.where(sel, t[:, :, 0], t[:, :, 1])  # [B, cp, 2(s), cw]
-        v = torch.einsum("BbsA,bsc->BAc", t, pc)
-    return pm.amplitude * v[:, 0, 0]
+        # [..., B, cp, 2(s), cw]
+        t = torch.where(sel, t.select(-3, 0), t.select(-3, 1))
+        v = torch.einsum("...BbsA,bsc->...BAc", t, pc)
+    return pm.amplitude * v[..., 0, 0]
 
 
 def zipper_chain(W, psi) -> MPS:

@@ -38,11 +38,13 @@ def _device_eigh(H: torch.Tensor, *, sweeps: int | None = None):
     """Jacobi eigh on the device route: K2 for a CUDA tensor of even
     m <= 512 in float32/complex64, the plain solver otherwise. ``sweeps``
     overrides the per-size default (loose-cutoff truncations ask for
-    fewer)."""
+    fewer). Every leading axis of ``H`` [..., m, m] rides one call, so a
+    batch of matrices is one K2 launch."""
     m = H.shape[-1]
     if (H.is_cuda and m % 2 == 0 and m <= MAX_M
             and H.dtype in (torch.float32, torch.complex64)):
-        return jacobi_eigh_k2(H, sweeps=sweeps)
+        lam, V = jacobi_eigh_k2(H.reshape(-1, m, m), sweeps=sweeps)
+        return lam.reshape(H.shape[:-1]), V.reshape(H.shape)
     return jacobi_eigh(H, sweeps=sweeps)
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from qilaplace_tpu_torch.ops.complexlinalg import (
@@ -38,16 +39,18 @@ def rsvd(M: torch.Tensor, key, *, k: int = 20, p: int = 10, q: int = 0,
          cutoff: float = 1e-15, maxdim: int | None = None, mindim: int = 1,
          out_dim: int | None = None):
     """Randomized SVD of a (possibly zero-padded) matrix ``M`` [a, b], or a
-    batch [B, a, b].
+    batch [..., a, b].
 
-    ``key`` seeds the sketch: an int (one matrix), or a sequence of B ints
-    (a batch). Returns ``(U, s, Vh, rank)`` with U [..., a, out_dim],
-    s [..., out_dim], Vh [..., out_dim, b] and int32 rank [...]; entries at
-    index >= rank are zero. ``k``: target rank, ``p``: oversampling, ``q``:
+    ``key`` seeds the sketch: an int (one sketch shared by every matrix of
+    a batch, as a ``vmap`` with an unbatched key shares it), or a sequence
+    of G ints, one sketch per entry of the axis -3 of ``M`` [..., G, a, b]
+    (the encoder's sibling nodes), shared over any axes before it. Returns
+    ``(U, s, Vh, rank)`` with U [..., a, out_dim], s [..., out_dim],
+    Vh [..., out_dim, b] and int32 rank [...]; entries at index >= rank are
+    zero. ``k``: target rank, ``p``: oversampling, ``q``:
     power iterations (maxdim defaults to k).
     """
     a, b = M.shape[-2:]
-    batched = M.dim() == 3
     # sketch width rounded up to a multiple of 8: the eigensolves on the
     # [l, l] Gram matrices take kernel K2 only for even l
     l = min(((k + p + 7) // 8) * 8, a, b)
@@ -58,14 +61,15 @@ def rsvd(M: torch.Tensor, key, *, k: int = 20, p: int = 10, q: int = 0,
     maxdim = min(maxdim, out_dim, l)
     sweeps = fast_sweeps(l) if _is_fast(cutoff) else None
 
-    seeds = list(key) if batched else [key]
-    if len(seeds) != (M.shape[0] if batched else 1):
-        raise ValueError("rsvd: need one seed per batch element")
+    shared = isinstance(key, (int, np.integer))
+    seeds = [key] if shared else list(key)
+    if not shared and (M.dim() < 3 or len(seeds) != M.shape[-3]):
+        raise ValueError("rsvd: need one seed per entry of axis -3")
     Om = torch.stack([sketch_matrix(s, b, l, M.dtype, device=M.device)
                       for s in seeds])
     if M.is_complex():  # (N(0,1) + i N(0,1)) / sqrt(2), as the JAX rsvd draws
         Om = Om / math.sqrt(2.0)
-    if not batched:
+    if shared:
         Om = Om[0]
 
     Y = M @ Om  # [..., a, l]: the big GEMM

@@ -166,13 +166,15 @@ def _gaussian(b: int, l: int, dtype: torch.dtype, device: torch.device,
 
 def _sketched_svd(M: torch.Tensor, l: int, power_iters: int,
                   sweeps: int | None = None, polish: int = POLISH_SWEEPS):
-    """Randomized top-l factorization: returns (U [a, l], s [l], Vh [l, b]).
+    """Randomized top-l factorization: returns (U [..., a, l], s [..., l],
+    Vh [..., l, b]) of ``M`` [..., a, b].
 
     Range finder, Gram orthonormalization and power iteration, then the
     complete-Gram step on the small projection. The orthonormalization
     masks null directions exactly: the zip-up matrices this sees are
-    rank-deficient."""
-    a, b = M.shape
+    rank-deficient. A batch shares one Gaussian, as the JAX package's
+    ``vmap`` shares its unbatched key."""
+    a, b = M.shape[-2:]
     transpose = a > b
     if transpose:
         M = M.mH
@@ -209,7 +211,9 @@ def truncated_svd(M: torch.Tensor, *, cutoff=0.0, maxdim=None, mindim=1,
 
     Returns ``(U, s, Vh, rank)`` with U [a, k], s [k], Vh [k, b] for some
     k <= min(a, b) (k < min(a, b) on the sketched route); columns and rows
-    at index >= rank are zero.
+    at index >= rank are zero. ``M`` may carry leading batch axes
+    [..., a, b]: every output then carries them too, and each matrix gets
+    its own rank.
 
     Factorization profiles on the device route: fast (loose cutoffs, or
     ``fast=True``): fast pass-1 sweeps, a 4-sweep graded polish, no power
@@ -217,7 +221,7 @@ def truncated_svd(M: torch.Tensor, *, cutoff=0.0, maxdim=None, mindim=1,
     tight float64: default sweeps and power iteration, always on the
     complete-Gram route.
     """
-    a, b = M.shape
+    a, b = M.shape[-2:]
     k = min(a, b)
     if maxdim is None:
         maxdim = k
@@ -257,7 +261,8 @@ def truncated_svd(M: torch.Tensor, *, cutoff=0.0, maxdim=None, mindim=1,
                 sweeps = fast_sweeps(l)
             U, s, Vh = _sketched_svd(M, l, power_iters, sweeps=sweeps,
                                      polish=polish)
-            total = (M.abs() ** 2).sum().to(s.dtype)
+            # ||M||_F^2 of each matrix of a batch, never of the batch
+            total = (M.abs() ** 2).sum(dim=(-2, -1)).to(s.dtype)
             rank = truncation_rank(s, cutoff, maxdim, mindim, total=total,
                                    noise_floor=nf)
     U, s, Vh = _mask(U, s, Vh, rank)
@@ -284,9 +289,9 @@ def svd_split(M: torch.Tensor, *, cutoff=0.0, maxdim=None, mindim=1,
     padded or sliced to ``out_dim`` (default min(a, b)); exact because
     masked entries are zero and rank <= maxdim <= out_dim.
 
-    Returns ``(L, R, rank)``.
+    Returns ``(L, R, rank)``; leading batch axes of ``M`` carry through.
     """
-    a, b = M.shape
+    a, b = M.shape[-2:]
     if out_dim is None:
         out_dim = min(a, b)
     if maxdim is None:
@@ -296,15 +301,15 @@ def svd_split(M: torch.Tensor, *, cutoff=0.0, maxdim=None, mindim=1,
                                    mindim=mindim, fast=fast)
     sc = s.to(M.dtype)
     if absorb == "left":
-        L, R = U * sc[None, :], Vh
+        L, R = U * sc[..., None, :], Vh
     elif absorb == "right":
-        L, R = U, sc[:, None] * Vh
+        L, R = U, sc[..., :, None] * Vh
     elif absorb == "both":
         sq = torch.sqrt(s).to(M.dtype)
-        L, R = U * sq[None, :], sq[:, None] * Vh
+        L, R = U * sq[..., None, :], sq[..., :, None] * Vh
     else:
         raise ValueError("absorb must be 'left', 'right' or 'both'")
-    return _fit(L, 1, out_dim), _fit(R, 0, out_dim), rank
+    return _fit(L, -1, out_dim), _fit(R, -2, out_dim), rank
 
 
 def range_split(M: torch.Tensor, om: torch.Tensor, *,

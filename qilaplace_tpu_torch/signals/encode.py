@@ -16,6 +16,10 @@ Counterpart of ``qilaplace_tpu/signals/encode.py``:
 Encoders keep the input's dtype: real signals encode in float32/float64
 and the complex transform operators upcast on contact. The signal is moved
 to ``device`` (the card unless told otherwise) before anything is computed.
+
+The 'svd' and 'rsvd' sweeps also take a batch of signals [B, N]: every
+tensor then carries B first and each factorization of the batch is one
+call (one K2 launch on the card), as under the JAX package's ``vmap``.
 """
 
 from __future__ import annotations
@@ -32,54 +36,60 @@ from qilaplace_tpu_torch.utils.config import bucket_for, resolve_device
 
 
 def _pad_to_stack(core_list, chi: int) -> torch.Tensor:
-    """Zero-pad per-site cores [l, 2, r] into one [n, chi, 2, chi] stack."""
+    """Zero-pad per-site cores [..., l, 2, r] into one [..., n, chi, 2, chi]
+    stack."""
     c0 = core_list[0]
-    out = c0.new_zeros(len(core_list), chi, 2, chi)
+    out = c0.new_zeros(*c0.shape[:-3], len(core_list), chi, 2, chi)
     for i, c in enumerate(core_list):
-        out[i, : c.shape[0], :, : c.shape[2]] = c
+        out[..., i, : c.shape[-3], :, : c.shape[-1]] = c
     return out
 
 
 def _prepare(x, device):
+    """The signal [..., N] on ``device``, zero-filled to a power of 2 and
+    normalized; returns ``(x, amplitude [...], n)``."""
     if isinstance(x, torch.Tensor):
         x = x.to(device)
     else:
         x = torch.from_numpy(np.asarray(x)).to(device)
-    N = x.shape[0]
+    N = x.shape[-1]
     n = max(1, (N - 1).bit_length())
     if N < 2**n:
         warnings.warn(
             f"signal_mps: input length {N} is not a power of 2; zero-filling "
             f"to {2**n}. Power-of-2 lengths are recommended."
         )
-        x = torch.cat([x, x.new_zeros(2**n - N)])
-    amplitude = torch.linalg.vector_norm(x)
+        x = torch.cat([x, x.new_zeros(*x.shape[:-1], 2**n - N)], dim=-1)
+    amplitude = torch.linalg.vector_norm(x, dim=-1)
     safe = torch.where(amplitude == 0, torch.ones_like(amplitude), amplitude)
-    return x / safe, amplitude, n
+    return x / safe[..., None], amplitude, n
 
 
-def _rank1(device) -> torch.Tensor:
-    return torch.ones((), dtype=torch.int32, device=device)
+def _rank1(x) -> torch.Tensor:
+    """Boundary rank 1 for each signal of ``x`` [..., N]."""
+    return torch.ones(x.shape[:-1], dtype=torch.int32, device=x.device)
 
 
 def _tt_svd(x, n: int, *, cutoff: float, maxdim: int):
-    """Sequential left-to-right truncated-SVD sweep. Returns (cores, ranks)."""
+    """Sequential left-to-right truncated-SVD sweep over ``x`` [..., 2^n].
+    Returns (cores, ranks)."""
+    lead = x.shape[:-1]
     cores = []
-    ranks = [_rank1(x.device)]
-    cur = x.reshape(1, -1)
+    ranks = [_rank1(x)]
+    cur = x
     r_static = 1
     for i in range(n - 1):
         rest = 2 ** (n - i - 1)
-        M = cur.reshape(r_static * 2, rest)
+        M = cur.reshape(*lead, r_static * 2, rest)
         out_dim = min(maxdim, r_static * 2, rest)
         L, R, rank = svd_split(M, cutoff=cutoff, maxdim=out_dim,
                                absorb="right", out_dim=out_dim)
-        cores.append(L.reshape(r_static, 2, out_dim))
+        cores.append(L.reshape(*lead, r_static, 2, out_dim))
         ranks.append(rank)
         cur = R
         r_static = out_dim
-    cores.append(cur.reshape(r_static, 2, 1))
-    ranks.append(_rank1(x.device))
+    cores.append(cur.reshape(*lead, r_static, 2, 1))
+    ranks.append(_rank1(x))
     return cores, ranks
 
 
@@ -92,24 +102,26 @@ def _tt_rsvd(x, n: int, seed: int, *, cutoff: float, maxdim: int, k: int,
     rsvd call: the 2^d independent splits at depth d cost one eigensolve
     latency instead of 2^d. Node ``first``'s sketch is seeded with
     ``seed * 65536 + first`` (the JAX package folds ``first`` into its
-    key).
+    key); a batch of signals ``x`` [..., 2^n] shares each node's sketch.
     """
+    lead = x.shape[:-1]
+    g = len(lead)  # the group axis of a level's stacked nodes
     cores: list = [None] * n
     ranks: list = [None] * (n + 1)
-    ranks[0] = _rank1(x.device)
-    ranks[n] = _rank1(x.device)
+    ranks[0] = _rank1(x)
+    ranks[n] = _rank1(x)
     kp_cap = k + p
 
-    nodes = [(x.reshape(1, 2**n, 1), 0, n - 1)]
+    nodes = [(x.reshape(*lead, 1, 2**n, 1), 0, n - 1)]
     while nodes:
         next_nodes: list = []
         groups: dict = {}
         for node in nodes:
             T, first, last = node
             if first == last:
-                cores[first] = T  # [bl, 2, br]
+                cores[first] = T  # [..., bl, 2, br]
                 continue
-            groups.setdefault(tuple(T.shape), []).append(node)
+            groups.setdefault(tuple(T.shape[-3:]), []).append(node)
         for shape, grp in groups.items():
             bl, _, br = shape
             span = grp[0][2] - grp[0][1] + 1
@@ -118,20 +130,24 @@ def _tt_rsvd(x, n: int, seed: int, *, cutoff: float, maxdim: int, k: int,
             bd = min(maxdim, kp_cap, bl * 2**nl, 2**nr * br)
             seeds = [seed * 65536 + first for _, first, _ in grp]
             kw = dict(k=k, p=p, q=q, cutoff=cutoff, maxdim=bd, out_dim=bd)
+            rows, cols = bl * 2**nl, 2**nr * br
             if len(grp) == 1:
-                T0 = grp[0][0].reshape(bl * 2**nl, 2**nr * br)
+                T0 = grp[0][0].reshape(*lead, rows, cols)
                 U, s, Vh, rank = rsvd(T0, seeds[0], **kw)
-                U, s, Vh, rank = U[None], s[None], Vh[None], rank[None]
+                U, s, Vh = U.unsqueeze(g), s.unsqueeze(g), Vh.unsqueeze(g)
+                rank = rank.unsqueeze(g)
             else:
-                Ms = torch.stack(
-                    [T.reshape(bl * 2**nl, 2**nr * br) for T, _, _ in grp])
+                Ms = torch.stack([T.reshape(*lead, rows, cols)
+                                  for T, _, _ in grp], dim=g)
                 U, s, Vh, rank = rsvd(Ms, seeds, **kw)
             for i, (_, first, last) in enumerate(grp):
                 mid = first + nl - 1
-                ranks[mid + 1] = rank[i]
-                next_nodes.append((U[i].reshape(bl, 2**nl, bd), first, mid))
-                R = s[i][:, None].to(Vh.dtype) * Vh[i]
-                next_nodes.append((R.reshape(bd, 2**nr, br), mid + 1, last))
+                ranks[mid + 1] = rank.select(g, i)
+                next_nodes.append((U.select(g, i).reshape(*lead, bl, 2**nl,
+                                                          bd), first, mid))
+                R = s.select(g, i)[..., :, None].to(Vh.dtype) * Vh.select(g, i)
+                next_nodes.append((R.reshape(*lead, bd, 2**nr, br), mid + 1,
+                                   last))
         nodes = next_nodes
     return cores, ranks
 
@@ -146,7 +162,9 @@ def signal_mps(x, *, method: str = "svd", cutoff: float = 1e-15,
     The original Euclidean norm is stored in ``.amplitude``; the tensor
     data is unit-norm. ``method``: 'svd' (TT-SVD sweep), 'rsvd' (D&C
     randomized) or 'cross' (host-f64 cross interpolation; k/p/q are
-    ignored and the cross rank is capped at min(maxdim, 256))."""
+    ignored and the cross rank is capped at min(maxdim, 256)). With 'svd'
+    or 'rsvd' ``x`` may be a batch [..., N] of signals; the state then
+    carries the batch axes first in every field."""
     device = resolve_device(device)
     if method == "cross":
         from qilaplace_tpu_torch.signals.cross_encode import signal_mps_cross
@@ -172,10 +190,10 @@ def signal_mps(x, *, method: str = "svd", cutoff: float = 1e-15,
             "'cross'"
         )
     if chi is None:
-        chi = bucket_for(max([c.shape[0] for c in cores]
-                             + [c.shape[2] for c in cores]))
+        chi = bucket_for(max([c.shape[-3] for c in cores]
+                             + [c.shape[-1] for c in cores]))
     return MPS(cores=_pad_to_stack(cores, chi),
-               ranks=torch.stack([r.to(torch.int32) for r in ranks]),
+               ranks=torch.stack([r.to(torch.int32) for r in ranks], dim=-1),
                amplitude=amplitude)
 
 

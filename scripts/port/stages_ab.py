@@ -1,22 +1,26 @@
-"""QFT n=28 stage times of two checkouts of the port, on one CUDA card, in turns.
+"""Stage times of two checkouts of the port, on one CUDA card, in turns.
 
-    python scripts/port/qft_stages_ab.py BEFORE_ROOT AFTER_ROOT [--runs 2]
+    python scripts/port/stages_ab.py BEFORE_ROOT AFTER_ROOT [--runs 2]
 
 Each root is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
 The checkouts run in the order before, after, after, before, each in a
 process of its own that builds its kernels, makes one warm-up run and then
-``--runs`` timed runs of the configuration ``chip_smoke.py`` drives
+``--runs`` timed runs of two configurations ``chip_smoke.py`` drives, each
+stage synchronised and timed on the host clock: the QFT path
 (QFTPipeline(28, chi=64, cutoff=1e-9), rsvd encode k=50 p=5 q=2, zip-up
-apply), each stage synchronised and timed on the host clock. One JSON line
-per process: the root, its stage times (the median run) and the K2 launches
-of one run. The card's name and power limit lead the output.
+apply) and the gate path of the n=20 pole search (TT-SVD encode of its
+signal, zt_mpo(20, 2 pi, engine="gate", cutoff=1e-9, maxdim=128) in
+complex64, the zip-up apply at chi 128). One JSON line per process: the
+root, its stage times (the median run) and the K2 launches of one run. The
+card's name and power limit lead the output.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -24,6 +28,8 @@ import time
 
 N_BITS, CHI, CUTOFF = 28, 64, 1e-9
 ENCODE = dict(method="rsvd", k=50, p=5, q=2)
+GATE_BITS, GATE_CHI = 20, 128
+POLE_LAM, POLE_W = 1.6e-4, 4.08e-3  # the pole search's e^{-lam j} sin(w j)
 
 
 def worker(root: str, runs: int) -> None:
@@ -44,13 +50,24 @@ def worker(root: str, runs: int) -> None:
         return out, time.perf_counter() - t0
 
     x = qt.generate_signal(N_BITS, device=dev)
+    j = torch.arange(2**GATE_BITS, dtype=torch.float64, device=dev)
+    x_gate = (torch.exp(-POLE_LAM * j) * torch.sin(POLE_W * j)).float()
 
     def one_run():
         pipe, t_build = synced(lambda: qt.QFTPipeline(
             N_BITS, chi=CHI, cutoff=CUTOFF, device=dev))
         psi, t_enc = synced(lambda: pipe.encode(x, **ENCODE))
         _, t_apply = synced(lambda: pipe.forward(psi))
-        return dict(build_s=t_build, encode_s=t_enc, apply_s=t_apply)
+        psi_g, t_genc = synced(lambda: qt.signal_ztmps(
+            x_gate, cutoff=1e-12, maxdim=GATE_CHI, device=dev))
+        W, t_gbuild = synced(lambda: qt.zt_mpo(
+            GATE_BITS, 2 * math.pi, engine="gate", cutoff=CUTOFF,
+            maxdim=GATE_CHI, dtype=torch.complex64, cache=False, device=dev))
+        _, t_gapply = synced(lambda: qt.apply(W, psi_g, maxdim=GATE_CHI,
+                                              cutoff=CUTOFF))
+        return dict(build_s=t_build, encode_s=t_enc, apply_s=t_apply,
+                    gate_encode_s=t_genc, gate_build_s=t_gbuild,
+                    gate_apply_s=t_gapply)
 
     one_run()  # warm-up: kernel builds, allocator
     jacobi_eigh_k2.launches = 0

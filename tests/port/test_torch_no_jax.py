@@ -1,4 +1,5 @@
-"""The port imports no JAX and builds nothing at import time."""
+"""The port imports no JAX and builds nothing at import time; its
+``parallel`` package and ``entry`` module have the JAX package's names."""
 
 import ast
 import os
@@ -24,6 +25,15 @@ for mod in pkgutil.walk_packages(qilaplace_tpu_torch.__path__,
 assert not any(m == "jax" or m.startswith(("jax.", "qilaplace_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 assert not kb._LOADED  # nothing compiled on import
+# the counterparts of qilaplace_tpu.parallel and of __graft_entry__.py
+import qilaplace_tpu_torch.entry as entry
+import qilaplace_tpu_torch.parallel as parallel
+assert parallel.__all__ == [
+    "make_mesh", "shard_batch", "replicate", "batched_signal_mps",
+    "batched_qft_pipeline", "sharded_chi_grid", "stack_mpos",
+    "multi_mpo_chi_batch", "sharded_multi_scan", "fit_mpo_step"]
+assert all(callable(getattr(parallel, name)) for name in parallel.__all__)
+assert callable(entry.entry) and callable(entry.dryrun_multichip)
 print("IMPORT_OK")
 """
 
