@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch port (qilaplace_tpu_torch) on one CUDA card.
 
 Drives the port's paths (the n=30 zT scan, the QFT spectrum, the gate-built
-zT and DT operators with the apply-then-read pole search) at full size and
-checks them:
+zT and DT operators with the apply-then-read pole search, the batched path,
+the tutorials) at full size and checks them:
 
 1. env       torch / CUDA versions, the card, its power limit;
 2. build     kernels K1 and K2 from qilaplace_tpu_torch/csrc, one nvcc each,
@@ -80,7 +80,9 @@ checks them:
              that the gate phases launched, plus c64 m = 288 B = 1 at 7
              sweeps and f32 m = 160 at 6: the "device_memory" records of
              K2's line);
-9. trace     torch.profiler (CPU and CUDA activity) over one n=28 QFT
+9. trace     torch.profiler (device activity only: recording the host's
+             ops too doubles the build's wall time under the profiler and
+             takes minutes to process) over one n=28 QFT
              build and one apply after the timed runs: K2's summed device
              time and launches, all kernels' device time, the stage's wall
              time under the profiler and the card's busy share (the union
@@ -116,8 +118,7 @@ checks them:
              timed on the product chain as in 8, K2 timed at the gate
              phases' three most launched new shapes and at the shapes of
              the cluster variant (see 8);
-13. trace    one n=20 gate build under torch.profiler, as in 9, with
-             device activity only.
+13. trace    one n=20 gate build under torch.profiler, as in 9.
 
 14. batch    the batched QFT path (qilaplace_tpu_torch.parallel):
              batched_qft_pipeline over 8 signals x_j = sin(a_b j),
@@ -155,6 +156,23 @@ K2 is timed (as in 8) at every shape the batched phase launched, beside
 its plain version and the batched torch.linalg.eigh ("batched_shapes" in
 K2's line).
 
+17. tutorials the four tutorials of qilaplace_tpu_torch.tutorials (signal,
+             dft, dt, zt: the JAX package's docs/tutorials at their own
+             sizes, n = 2 to 14) through run(device=card,
+             dtype=complex64), each timed on the host clock, synchronised;
+             each asserts its tutorial's facts at its complex64 bars and
+             writes no file; each must launch K2 with no plain Jacobi call
+             on the card, and zt must launch K1; every K1 launch of a
+             tutorial (recorded by a hook that counts nothing) is held
+             against K1's plain version in complex128 on its own chain and
+             configs; then K2 against its plain
+             version, as in 4, at every shape they launched that no
+             earlier phase did. Then K2's one-block variant on device
+             buffers (m > 320) timed as in 8 (one plain call and 3 kernel
+             calls a turn): c64 m = 384 and 512, B = 1, at the default
+             sweeps, and every shape of it any phase launched, with the
+             launches of every phase ("device_buffers" in K2's line).
+
 Every gate, batched and entry phase sets the counts to 0 just before it,
 reads them just after and fails if the plain Jacobi solver ran on the
 card.
@@ -167,6 +185,8 @@ Run from the repository root: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import subprocess
@@ -370,12 +390,18 @@ def bound(ops, nbytes):
 def k1_vs_plain(chain, cfg):
     """(max abs err, max abs err / max |ref|) of K1 against the plain
     version run in complex128 on the same inputs."""
+    from qilaplace_tpu_torch.ops.readout_kernels import coefficient_batch_k1
+
+    return k1_err(coefficient_batch_k1(chain, cfg), chain, cfg)
+
+
+def k1_err(got, chain, cfg):
+    """(max abs err, max abs err / max |ref|) of K1's output ``got`` on
+    ``chain`` at ``cfg`` against the plain version run in complex128."""
     from qilaplace_tpu_torch.ops.readout_kernels import (
-        coefficient_batch_k1,
         coefficient_batch_k1_reference,
     )
 
-    got = coefficient_batch_k1(chain, cfg)
     torch.cuda.synchronize()
     check(got.shape == (cfg.shape[0],), "K1 output shape")
     check(bool(torch.isfinite(torch.view_as_real(got)).all()),
@@ -801,10 +827,11 @@ def phase_readout_routes(dev):
         check(err <= K1_TOL, f"spectrum c64 chi 264: {err:.3e}")
 
 
-def phase_k2_timing(smi, shapes):
+def phase_k2_timing(smi, shapes, plain_reps=3, reps=20):
     """K2 against its plain version and torch.linalg.eigh at each distinct
-    (m, B, complex, sweeps) of ``shapes``, in turns; returns one record per
-    shape."""
+    (m, B, complex, sweeps) of ``shapes``, in turns, ``plain_reps`` calls of
+    the plain version and ``reps`` of the others a turn; returns one record
+    per shape."""
     from qilaplace_tpu_torch.ops.jacobi_kernels import (
         jacobi_eigh_k2,
         jacobi_eigh_k2_reference,
@@ -821,11 +848,11 @@ def phase_k2_timing(smi, shapes):
         kernel(), plain(), library()  # warm-up
         ms = {"kernel": [], "plain": [], "library": []}
         for _ in range(2):  # in turns: plain, kernel, kernel, plain
-            ms["plain"].append(event_ms(plain, reps=3))
-            ms["kernel"].append(event_ms(kernel, reps=20))
-            ms["kernel"].append(event_ms(kernel, reps=20))
-            ms["plain"].append(event_ms(plain, reps=3))
-            ms["library"].append(event_ms(library, reps=20))
+            ms["plain"].append(event_ms(plain, reps=plain_reps))
+            ms["kernel"].append(event_ms(kernel, reps=reps))
+            ms["kernel"].append(event_ms(kernel, reps=reps))
+            ms["plain"].append(event_ms(plain, reps=plain_reps))
+            ms["library"].append(event_ms(library, reps=reps))
         med = {k: float(np.median(v)) for k, v in ms.items()}
         rounds = sweeps * (m - 1)
         # a round: 2x2 blocks of G on both sides and V's column pairs,
@@ -1491,7 +1518,7 @@ def phase_trace(dev, n=QFT_BITS):
     psi = qt.QFTPipeline(n, chi=QFT_CHI, cutoff=QFT_CUTOFF,
                          device=dev).encode(x, **QFT_ENCODE)
     del x
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA]
     stages = {}
     with profile(activities=acts) as prof:
         pipe, stages["build"] = synced(lambda: qt.QFTPipeline(
@@ -1502,6 +1529,83 @@ def phase_trace(dev, n=QFT_BITS):
     res["apply"] = device_busy(prof, stages["apply"])
     for stage, r in res.items():
         log_trace(f"n={n} {stage}", stages[stage], r)
+
+
+# ------------------------------ tutorials -----------------------------------
+
+TUTORIALS = ("signal", "dft", "dt", "zt")
+K2_ONE_BLOCK_M = (384, 512)  # K2's one-block variant on device buffers
+
+
+@contextlib.contextmanager
+def k1_recorded():
+    """Within the block, every module of the port that imported K1's
+    wrapper calls a recorder instead, which calls the wrapper and keeps
+    (chain, configs, result) of each launch; only the wrapper's own count
+    moves. Yields the list of launches."""
+    from qilaplace_tpu_torch.ops import readout_kernels as rk
+
+    real, calls = rk.coefficient_batch_k1, []
+
+    def recorder(chain, configs):
+        before = real.launches
+        got = real(chain, configs)
+        if real.launches > before:
+            calls.append((getattr(chain, "chain", chain), configs, got))
+        return got
+
+    # not readout_kernels itself: the wrapper counts through its global
+    users = [m for name, m in list(sys.modules.items())
+             if name.startswith("qilaplace_tpu_torch") and m is not rk
+             and getattr(m, "coefficient_batch_k1", None) is real]
+    for m in users:
+        m.coefficient_batch_k1 = recorder
+    try:
+        yield calls
+    finally:
+        for m in users:
+            m.coefficient_batch_k1 = real
+
+
+def phase_tutorials(dev):
+    """The four tutorials of qilaplace_tpu_torch.tutorials on the card in
+    complex64, each with the counts set to 0 just before it: each run
+    asserts its tutorial's facts (and raises), writes no file (its pole
+    searches build with cache=False), must launch K2 and run no plain
+    Jacobi call on the card; zt must launch K1. After each run, every K1
+    launch it made is held against K1's plain version in complex128 on the
+    same chain and configs. Returns per tutorial its wall time and
+    counts."""
+    import importlib
+
+    out = {}
+    for name in TUTORIALS:
+        tutorial = importlib.import_module(f"qilaplace_tpu_torch.tutorials.{name}")
+        with k1_recorded() as k1_calls:
+            reset_counts()
+            _, wall = synced(lambda: tutorial.run(device=dev,
+                                                  dtype=torch.complex64))
+            counts = read_counts()
+        check(len(k1_calls) == counts["k1"],
+              f"{name}: {len(k1_calls)} K1 launches recorded, "
+              f"{counts['k1']} counted")
+        for i, (chain, cfg, got) in enumerate(k1_calls):
+            err, rel = k1_err(got, chain, cfg)
+            log(f"[tutorial] {name}: K1 launch {i} (n {chain.n}, chi "
+                f"{chain.chi}, B {cfg.shape[0]}) vs plain c128: max_abs_err "
+                f"{err:.3e} rel {rel:.3e} (tol {K1_TOL:g})")
+            check(rel <= K1_TOL, f"{name}: K1 launch {i} disagrees with its "
+                  "plain version")
+        log_counts(f"tutorial {name}", counts)
+        max_m = max((m for m, _, _, _ in counts["k2_by_shape"]), default=0)
+        log(f"[tutorial] {name}: wall {wall:.4f} s (host clock, synchronised), "
+            f"K1 launches {counts['k1']}, K2 launches {counts['k2']}, largest "
+            f"K2 m {max_m}, plain Jacobi calls on the card "
+            f"{counts['plain_cuda']}")
+        check(counts["k2"] > 0, f"the {name} tutorial launched no K2")
+        out[name] = dict(counts, wall_s=wall, k2_max_m=max_m)
+    check(out["zt"]["k1"] > 0, "the zt tutorial launched no K1")
+    return out
 
 
 def log_trace(what, wall, r):
@@ -1617,6 +1721,32 @@ def main():
     mark("QFT trace")
     phase_gate_trace(dev)
     mark("gate trace")
+
+    # the tutorials: each sets the counts to 0 just before it
+    tutorials = phase_tutorials(dev)
+    tut_shapes = collections.Counter()
+    for t in tutorials.values():
+        tut_shapes.update(t["k2_by_shape"])
+    earlier = collections.Counter()
+    for c in [qft_counts, qft16_counts, *gate, batch_counts, one_counts]:
+        earlier.update(c["k2_by_shape"])
+    k2_err = max(k2_err, phase_k2_path_shapes(dev, set(tut_shapes)
+                                              - set(earlier)))
+    mark("tutorials")
+    # K2's one-block variant on device buffers (m > CLUSTER_MAX_M): c64
+    # m = 384 and 512, B = 1, at the kernel's default sweeps, and every
+    # shape of it that a phase launched, with the launches of every phase
+    from qilaplace_tpu_torch.ops.jacobi import default_sweeps
+
+    every = earlier + tut_shapes
+    one_block = [(m, 1, True, default_sweeps(m)) for m in K2_ONE_BLOCK_M]
+    one_block += sorted((m, B, kind == "c64", sw)
+                        for m, B, kind, sw in every if m > CLUSTER_MAX_M)
+    device_buffers = [
+        dict(r, launches=every[r["key"]],
+             launches_before_tutorials=earlier[r["key"]])
+        for r in phase_k2_timing(smi, one_block, plain_reps=1, reps=3)]
+    mark("K2 one-block timing")
     # K2's line: its most launched shape on the QFT path (the build's
     # two-site polish, m = 24); every shape's numbers are logged above,
     # the gate path's in "gate_shapes"
@@ -1679,7 +1809,15 @@ def main():
             "bound_by")} for r in batched],
         "batched_qft": batch_figs,
         "multi_scan": multi,
+        "device_buffers": [{k: r[k] for k in (
+            "shape", "launches", "launches_before_tutorials", "ms",
+            "us_a_round", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for r in device_buffers],
+        "tutorials": {name: {k: t[k] for k in ("wall_s", "k1", "k2",
+                                               "k2_max_m")}
+                      for name, t in tutorials.items()},
     }]}))
+    log(f"[clock] total {time.perf_counter() - t_start:.1f} s; card {smi}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

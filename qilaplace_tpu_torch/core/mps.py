@@ -67,6 +67,13 @@ class MPS:
     def __len__(self) -> int:
         return self.n
 
+    def __getitem__(self, config):
+        """``psi[b1, b2, ...]``: the amplitude at one bit configuration,
+        read by :func:`coefficient` on the state's device."""
+        if isinstance(config, tuple):
+            config = list(config)
+        return coefficient(self, config)
+
     def to(self, device=None, dtype: torch.dtype | None = None) -> "MPS":
         """Copy to ``device`` and/or cast the cores to ``dtype`` (the
         amplitude takes the real dtype of the same width)."""
@@ -111,6 +118,21 @@ class MPS:
         ranks = self.ranks.cpu().numpy()
         return [cores[i, : ranks[i], :, : ranks[i + 1]] for i in range(self.n)]
 
+    @staticmethod
+    def empty(n: int, *, chi: int = 8, dtype: torch.dtype = torch.complex64,
+              amplitude=1.0, device=None) -> "MPS":
+        """Zero cores ``[n, chi, 2, chi]`` with every bond rank 1 on
+        ``device`` (the card unless told otherwise), ready to be filled
+        site by site."""
+        if n < 1:
+            raise ValueError("MPS.empty: need n >= 1")
+        device = resolve_device(device)
+        return MPS(
+            cores=torch.zeros(n, chi, 2, chi, dtype=dtype, device=device),
+            ranks=torch.ones(n + 1, dtype=torch.int32, device=device),
+            amplitude=torch.as_tensor(np.asarray(amplitude), device=device),
+        )
+
 
 # SignalMPS is the single-register MPS.
 SignalMPS = MPS
@@ -133,8 +155,23 @@ class ZTMPS:
     def __len__(self) -> int:
         return self.n
 
+    def __getitem__(self, config):
+        """``psi[m1, c1, m2, c2, ...]``: the amplitude at one chain-length
+        configuration of interleaved main and copy bits."""
+        if isinstance(config, tuple):
+            config = list(config)
+        return coefficient(self, config)
+
     def to(self, device=None, dtype: torch.dtype | None = None) -> "ZTMPS":
         return ZTMPS(chain=self.chain.to(device, dtype))
+
+    @staticmethod
+    def empty(n: int, *, chi: int = 8, dtype: torch.dtype = torch.complex64,
+              amplitude=1.0, device=None) -> "ZTMPS":
+        """Zero paired-register state: :meth:`MPS.empty` of the 2n-site
+        chain."""
+        return ZTMPS(chain=MPS.empty(2 * n, chi=chi, dtype=dtype,
+                                     amplitude=amplitude, device=device))
 
 
 def _chain(psi) -> MPS:

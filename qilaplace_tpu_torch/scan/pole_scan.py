@@ -42,6 +42,7 @@ from qilaplace_tpu_torch.ops.readout_kernels import (
 )
 from qilaplace_tpu_torch.transforms.zt import zt_mpo
 from qilaplace_tpu_torch.utils.bits import paired_config_from_kl
+from qilaplace_tpu_torch.utils.config import real_dtype
 
 TWO_PI = 2.0 * math.pi
 
@@ -228,12 +229,17 @@ def coarse_to_fine_pole_search(
     (``apply_fused``: the zip-up apply at ``maxdim``/``cutoff``, else the
     exact apply) and reads it (:func:`pole_scan`), with a floor at
     eps ||W psi|| / peak. ``"auto"`` resolves to "direct" for 32-bit states
-    and to "apply" for 64-bit ones, as in the JAX package.
+    and to "apply" for 64-bit ones, as in the JAX package. The width is the
+    real part's: a complex64 state is 32-bit and reads directly in
+    complex64. This departs from the JAX package, whose rule,
+    ``itemsize >= 8``, counts complex64 as 64-bit and applies complex128
+    operators to it (with x64 on); both routes find the same peaks
+    (``tests/port/test_torch_slice.py``).
     """
     n = psi_z.n
     N = 2**n
     device = psi_z.chain.device
-    wide = psi_z.chain.cores.element_size() >= 8
+    wide = real_dtype(psi_z.chain.dtype).itemsize >= 8
     dtype = torch.complex128 if wide else torch.complex64
     if readout == "auto":
         readout = "apply" if wide else "direct"

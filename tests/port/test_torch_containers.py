@@ -10,6 +10,7 @@ import torch
 
 import qilaplace_tpu.core.mpo as jmpo
 import qilaplace_tpu.core.mps as jmps
+import qilaplace_tpu.signals.encode as jenc
 from qilaplace_tpu.utils import bits as jbits
 from qilaplace_tpu.utils import io as jio
 
@@ -134,3 +135,63 @@ def test_artifacts_load_in_both_packages(tmp_path):
         assert torch.equal(back_t.chain.ranks, obj.chain.ranks)
     assert float(tio.load(str(tmp_path / "ZTMPS.npz"),
                           device="cpu").amplitude) == 2.5
+
+
+def test_getitem_matches_jax():
+    """``psi[b1, ..., bn]`` and ZTMPS indexing on an interleaved config,
+    against the JAX package's (tests/test_mps.py's getitem sugar)."""
+    x = np.random.default_rng(1).normal(size=16)
+    psi_j = jenc.signal_mps(x, cutoff=0.0)
+    psi_t = qt.signal_mps(torch.from_numpy(x), cutoff=0.0, device="cpu")
+    got = complex(psi_t[0, 0, 1, 1])
+    assert abs(got - complex(psi_j[0, 0, 1, 1])) <= REL
+    assert abs(got - x[3]) <= 1e-12
+    assert complex(psi_t[[0, 0, 1, 1]]) == got  # a list reads the same
+    z_j = jenc.signal_ztmps(x, cutoff=1e-14)
+    z_t = qt.signal_ztmps(torch.from_numpy(x), cutoff=1e-14, device="cpu")
+    for j in (3, 10):
+        bits = tbits.int_to_bits(j, 4)
+        cfg = tuple(tbits.interleave_bits(bits, bits))  # |j>_main |j>_copy
+        want = complex(z_j[cfg])
+        assert abs(complex(z_t[cfg]) - want) <= REL
+        assert abs(want - x[j]) <= 1e-10
+    off = (1, 0, 0, 0, 0, 0, 0, 0)  # main and copy disagree: zero
+    assert abs(complex(z_t[off])) <= 1e-12 and abs(complex(z_j[off])) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_empty_constructors_match_jax(dtype):
+    """Zero cores, every bond rank 1 (tests/test_mps.py's
+    test_empty_constructors), in both packages."""
+    psi_t = qt.MPS.empty(5, dtype=dtype, device="cpu")
+    psi_j = jmps.MPS.empty(5, dtype=str(dtype).removeprefix("torch."))
+    qt.validate(psi_t)
+    assert psi_t.cores.shape == psi_j.cores.shape == (5, 8, 2, 8)
+    assert psi_t.dtype == dtype
+    assert np.array_equal(psi_t.cores.numpy(), np.asarray(psi_j.cores))
+    assert np.array_equal(psi_t.ranks.numpy(), np.asarray(psi_j.ranks))
+    assert psi_t.ranks.dtype == torch.int32 and float(psi_t.amplitude) == 1.0
+    zt_t = qt.ZTMPS.empty(4, chi=4, dtype=dtype, amplitude=2.0, device="cpu")
+    zt_j = jmps.ZTMPS.empty(4, chi=4, dtype=str(dtype).removeprefix("torch."),
+                            amplitude=2.0)
+    qt.validate(zt_t)
+    assert zt_t.n == 4 and zt_t.chain.n == 8 and zt_t.chain.chi == 4
+    assert np.array_equal(zt_t.chain.cores.numpy(),
+                          np.asarray(zt_j.chain.cores))
+    assert np.array_equal(zt_t.chain.ranks.numpy(),
+                          np.asarray(zt_j.chain.ranks))
+    assert float(zt_t.amplitude) == float(zt_j.amplitude) == 2.0
+    assert complex(zt_t[(0,) * 8]) == 0
+    with pytest.raises(ValueError, match="n >= 1"):
+        qt.MPS.empty(0, device="cpu")
+
+
+def test_empty_raises_without_a_card():
+    """No device: the card, and without one a RuntimeError, never the CPU
+    (the card's side is in test_torch_tutorials_gpu.py)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is the card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        qt.MPS.empty(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        qt.ZTMPS.empty(3)
