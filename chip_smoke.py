@@ -5,8 +5,14 @@ zT and DT operators with the apply-then-read pole search, the batched path,
 the tutorials) at full size and checks them:
 
 1. env       torch / CUDA versions, the card, its power limit;
-2. build     kernels K1 and K2 from qilaplace_tpu_torch/csrc, one nvcc each,
-             in parallel (sm_90a); registers, shared memory and spills;
+2. build     kernels K1 and K2 from qilaplace_tpu_torch/csrc and K2's
+             exchange primitives (scripts/port/k2_primitives.cu), one nvcc
+             each, in parallel (sm_90a); registers, shared memory and
+             spills; then the primitives timed alone (CUDA events): a flag
+             round trip through L2 between two blocks, and the group
+             variant's round without its arithmetic (flags, or one
+             counter, across 16 / 24 / 32 co-resident blocks, with and
+             without the columns it sends at m = 512);
 3. K1 check  K1 against its plain torch version (run in complex128) on the
              card: the zT path's shape (60 sites, chi 256, the 4096 scan
              configurations), a chi=8 chain with B=5, a chi=32 chain with
@@ -22,13 +28,15 @@ the tutorials) at full size and checks them:
              its sweep counts (c64 m = 24, 40, 80; f32 m = 56, B = 1 and 8),
              the route's edges at default sweeps (m = 2, 84 = the largest
              shared-memory m, 86 = the smallest on a cluster, 256, 320 =
-             the largest on a cluster, 322, 512; B = 4), the cluster
-             variant's largest complex64 solve below cutoff 1e-10 (m = 288,
-             B = 1, 7 sweeps) and its real variant (f32 m = 160, 6 sweeps),
-             a clustered spectrum
+             the largest on a cluster, 322 = the smallest on a group, 384,
+             448, 512; B = 4), the cluster variant's largest complex64
+             solve below cutoff 1e-10 (m = 288, B = 1, 7 sweeps) and its
+             real variant (f32 m = 160, 6 sweeps), the group variant's real
+             variant (f32 m = 512, 7 sweeps), a clustered spectrum
              (default and 12 sweeps) and a zero-padded input; then the
-             cluster variant with more clusters than the card holds at once
-             (c64 m = 160 and 288, B = 132, 7 sweeps, 3 launches each):
+             cluster and group variants with more clusters or groups than
+             the card holds at once (c64 m = 160 and 288, B = 132; m = 384,
+             B = 11; m = 512, B = 9; 7 sweeps, 3 launches each):
              eigenvalues bit-identical to the plain version in every run,
              V equal in every run. Eigenvalues
              against the plain version within jacobi_kernels.tolerance
@@ -167,11 +175,11 @@ K2's line).
              against K1's plain version in complex128 on its own chain and
              configs; then K2 against its plain
              version, as in 4, at every shape they launched that no
-             earlier phase did. Then K2's one-block variant on device
-             buffers (m > 320) timed as in 8 (one plain call and 3 kernel
-             calls a turn): c64 m = 384 and 512, B = 1, at the default
-             sweeps, and every shape of it any phase launched, with the
-             launches of every phase ("device_buffers" in K2's line).
+             earlier phase did. Then K2's group variant (m > 320) timed as
+             in 8 (one plain call and 10 kernel calls a turn): c64 m = 384
+             at 11 sweeps, c64 m = 512 at 6, 7 and 11, f32 m = 512 at 7,
+             and every shape of it any phase launched, with the launches
+             of every phase ("group" in K2's line).
 
 Every gate, batched and entry phase sets the counts to 0 just before it,
 reads them just after and fails if the plain Jacobi solver ran on the
@@ -220,6 +228,9 @@ GRID = 64            # the n=30 gate read: a GRID x GRID chi_grid
 # complex64 solve below cutoff 1e-10 and the real variant, (m, B, complex,
 # sweeps)
 CLUSTER_SHAPES = ((288, 1, True, 7), (160, 1, False, 6))
+# K2's group variant (m > 320) off every path but the tutorials: its real
+# variant
+GROUP_SHAPES = ((512, 1, False, 7),)
 # K2 on the QFT path (m, B, complex, sweeps): the build's two-site polish
 # (first: the "kernels" line's K2 record) and the sketch and encode solves
 QFT_K2_SHAPES = [(24, 1, True, 5), (40, 1, True, 6), (80, 1, True, 6),
@@ -231,6 +242,9 @@ N_OPS = 8            # the multi-operator scan: stacked operators
 MULTI_BAR = 1e-5     # stacked scan vs single scans, rel to the peak
 PEAK_FP32 = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s
+K2_PRIMITIVES = Path(__file__).resolve().parent / "scripts" / "port" / \
+    "k2_primitives.cu"
+GROUP_THREADS = 736  # a block of K2's group variant at m = 512 (row_pairs)
 
 
 def log(*args):
@@ -369,14 +383,56 @@ def phase_build():
     from qilaplace_tpu_torch.ops.readout_kernels import SOURCE as K1_SOURCE
 
     t0 = time.perf_counter()
-    infos = build_kernels(K1_SOURCE, K2_SOURCE)  # one nvcc each, in parallel
-    log(f"[build] K1 + K2 ready in {time.perf_counter() - t0:.2f} s")
+    # one nvcc each, in parallel
+    infos = build_kernels(K1_SOURCE, K2_SOURCE, str(K2_PRIMITIVES))
+    log(f"[build] K1, K2 and K2's primitives ready in "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, info in infos.items():
         log(f"[build] {name} {'reused' if info['cached'] else 'built'} in "
             f"{info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build]   {line.strip()}")
+
+
+def phase_k2_primitives(smi, iters=2000):
+    """K2's exchange primitives alone (scripts/port/k2_primitives.cu,
+    cooperative launches of GROUP_THREADS threads a block, CUDA events,
+    median of 3): a flag round trip through L2 between two blocks, and the
+    group variant's round without its arithmetic across nb = 16, 24, 32
+    blocks (a fenced flag a block, one warp waiting for all; or one
+    counter), with no columns and with the four columns of m = 512 it
+    sends a neighbour. Returns microseconds by name."""
+    import ctypes
+
+    from qilaplace_tpu_torch.ops.kernel_build import load_kernel
+
+    loop = load_kernel(str(K2_PRIMITIVES)).qlt_l2_loop
+    loop.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    loop.restype = ctypes.c_int
+    flags = torch.zeros(32, dtype=torch.int32, device="cuda")
+    words = 4 * 512  # float2: four columns of m = 512
+    boxes = torch.zeros(2 * 32 * words * 2, dtype=torch.float32, device="cuda")
+    sink = torch.zeros(1, dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = [("flag round trip, 2 blocks", 0, 2, 0)]
+    cases += [(f"{what} barrier, {nb} blocks, {n} words", mode, nb, n)
+              for mode, what in ((1, "flag"), (2, "counter"))
+              for nb in (16, 24, 32) for n in (0, words)]
+    out = {}
+    for name, mode, nb, n in cases:
+        def run():
+            err = loop(mode, nb, GROUP_THREADS, iters, n, flags.data_ptr(),
+                       boxes.data_ptr(), sink.data_ptr(), stream)
+            check(err == 0, f"K2 primitive {name}: CUDA error {err}")
+        run()
+        torch.cuda.synchronize()
+        us = 1e3 * float(np.median([event_ms(run, reps=1)
+                                    for _ in range(3)])) / iters
+        out[name] = us
+        log(f"[prim] K2 {name}: {us:.4f} us an iteration ({iters} "
+            f"iterations); card {smi}")
+    return out
 
 
 def bound(ops, nbytes):
@@ -664,10 +720,10 @@ def phase_k2_check(dev):
     cases += [(f"c64 m={m} B=4 default sweeps", hermitian(rng, 4, m),
                default_sweeps(m))
               for m in (2, SMEM_MAX_M, SMEM_MAX_M + 2, 256, CLUSTER_MAX_M,
-                        CLUSTER_MAX_M + 2, 512)]
+                        CLUSTER_MAX_M + 2, 384, 448, 512)]
     cases += [(f"{'c64' if cplx else 'f32'} m={m} B={B} sweeps={sw}",
                hermitian(rng, B, m, complex_=cplx), sw)
-              for m, B, cplx, sw in CLUSTER_SHAPES]
+              for m, B, cplx, sw in CLUSTER_SHAPES + GROUP_SHAPES]
     # clusters converge more slowly: at default sweeps the plain version's
     # own residual stays above 1e-5 (logged beside the kernel's), at 12 both
     # are converged
@@ -682,18 +738,21 @@ def phase_k2_check(dev):
 
 
 def phase_k2_cluster_stress(dev, repeats=3):
-    """K2's cluster variant with more clusters than the card holds at once
-    (B = 132 at m = 160 and 288, 7 sweeps, 8 blocks a matrix), launched
-    ``repeats`` times: every run's eigenvalues must equal the plain
-    version's bit for bit, and every run's V the first run's. A maker that
-    read a column across a block edge before its store landed would show
-    as a run that differs. Returns the eigenvalues' max abs error (0)."""
+    """K2's cluster and group variants with more clusters or groups than
+    the card holds at once (c64, 7 sweeps: B = 132 at m = 160 and 288, 8
+    blocks a matrix; B = 11 at m = 384 and B = 9 at m = 512, 24 and 32
+    blocks a matrix, 5 and 4 groups resident), launched ``repeats`` times:
+    every run's eigenvalues must equal the plain version's bit for bit, and
+    every run's V the first run's. A maker that read a column across a
+    block edge before its store landed, or a group block that read a
+    rotation or a column before its writer published it, would show as a
+    run that differs. Returns the eigenvalues' max abs error (0)."""
     from qilaplace_tpu_torch.ops import jacobi_kernels as jk
 
     rng = np.random.default_rng(2028)
     worst = 0.0
-    for m in (160, 288):
-        H = torch.from_numpy(hermitian(rng, 132, m)).to(dev)
+    for m, B in ((160, 132), (288, 132), (384, 11), (512, 9)):
+        H = torch.from_numpy(hermitian(rng, B, m)).to(dev)
         lam_p, _ = jk.jacobi_eigh_k2_reference(H, sweeps=7)
         V0 = None
         for run in range(repeats):
@@ -702,7 +761,7 @@ def phase_k2_cluster_stress(dev, repeats=3):
             V0 = V if V0 is None else V0
             same = float((lam == lam_p).double().mean())
             worst = max(worst, float((lam - lam_p).abs().max()))
-            log(f"[k2] stress c64 m={m} B=132 sweeps=7, run {run}: lam "
+            log(f"[k2] stress c64 m={m} B={B} sweeps=7, run {run}: lam "
                 f"bit-identical to plain {same:.1%}, V equal to run 0: "
                 f"{bool(torch.equal(V, V0))}")
             check(same == 1.0, f"K2 stress m={m} run {run}: eigenvalues "
@@ -1493,7 +1552,7 @@ def device_busy(prof, wall_s):
             continue
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
-        if "jacobi_" in e.name:  # K2: one block, or a cluster and V's pass
+        if "jacobi_" in e.name:  # every kernel of K2
             k2_us += t1 - t0
             k2_n += "jacobi_vectors_kernel" not in e.name
     if not spans:
@@ -1534,7 +1593,11 @@ def phase_trace(dev, n=QFT_BITS):
 # ------------------------------ tutorials -----------------------------------
 
 TUTORIALS = ("signal", "dft", "dt", "zt")
-K2_ONE_BLOCK_M = (384, 512)  # K2's one-block variant on device buffers
+# K2's group variant timed (m, complex, sweeps): the default profile at
+# m = 384 and 512, the dft tutorial's m = 512 at 6 and 7 sweeps, the real
+# variant
+K2_GROUP_TIMED = ((384, True, 11), (512, True, 6), (512, True, 7),
+                  (512, True, 11), (512, False, 7))
 
 
 @contextlib.contextmanager
@@ -1638,6 +1701,7 @@ def main():
     smi = phase_env()
     phase_build()
     mark("build")
+    primitives = phase_k2_primitives(smi)
     ks, ls, cfg_np = scan_samples(N_BITS)
     configs = torch.from_numpy(cfg_np).to(dev)
     phase_k1_check(dev, configs)
@@ -1733,20 +1797,18 @@ def main():
     k2_err = max(k2_err, phase_k2_path_shapes(dev, set(tut_shapes)
                                               - set(earlier)))
     mark("tutorials")
-    # K2's one-block variant on device buffers (m > CLUSTER_MAX_M): c64
-    # m = 384 and 512, B = 1, at the kernel's default sweeps, and every
-    # shape of it that a phase launched, with the launches of every phase
-    from qilaplace_tpu_torch.ops.jacobi import default_sweeps
-
+    # K2's group variant (m > CLUSTER_MAX_M) at K2_GROUP_TIMED, B = 1, and
+    # every shape of it that a phase launched, with the launches of every
+    # phase
     every = earlier + tut_shapes
-    one_block = [(m, 1, True, default_sweeps(m)) for m in K2_ONE_BLOCK_M]
-    one_block += sorted((m, B, kind == "c64", sw)
-                        for m, B, kind, sw in every if m > CLUSTER_MAX_M)
-    device_buffers = [
+    group_timed = [(m, 1, cplx, sw) for m, cplx, sw in K2_GROUP_TIMED]
+    group_timed += sorted((m, B, kind == "c64", sw)
+                          for m, B, kind, sw in every if m > CLUSTER_MAX_M)
+    group = [
         dict(r, launches=every[r["key"]],
              launches_before_tutorials=earlier[r["key"]])
-        for r in phase_k2_timing(smi, one_block, plain_reps=1, reps=3)]
-    mark("K2 one-block timing")
+        for r in phase_k2_timing(smi, group_timed, plain_reps=1, reps=10)]
+    mark("K2 group timing")
     # K2's line: its most launched shape on the QFT path (the build's
     # two-site polish, m = 24); every shape's numbers are logged above,
     # the gate path's in "gate_shapes"
@@ -1809,10 +1871,11 @@ def main():
             "bound_by")} for r in batched],
         "batched_qft": batch_figs,
         "multi_scan": multi,
-        "device_buffers": [{k: r[k] for k in (
+        "group": [{k: r[k] for k in (
             "shape", "launches", "launches_before_tutorials", "ms",
             "us_a_round", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-            for r in device_buffers],
+            for r in group],
+        "primitives_us": primitives,
         "tutorials": {name: {k: t[k] for k in ("wall_s", "k1", "k2",
                                                "k2_max_m")}
                       for name, t in tutorials.items()},

@@ -53,12 +53,15 @@
 //    changes who computes an entry, never how: on the card every variant
 //    reproduces the plain version bit for bit.
 //
-// Three variants, by m:
+// Three variants, by m, each held by the latency of a round (measured on an
+// H100, scripts/port/k2_variants.py and chip_smoke.py):
 //  * m <= SMEM_MAX_M = 84: one block a matrix holds G and V, both
 //    double-buffered (32 m^2 bytes complex), in dynamic shared memory
 //    (225,792 of the 232,448 bytes a block may opt in to at m = 84), and
 //    updates V beside G in the same round. Up to 1,024 threads: m = 80 is
-//    40 x 20 threads, two row pairs each, and two warps of rotation makers;
+//    40 x 20 threads, two row pairs each, and two warps of rotation makers.
+//    A round, 0.7-1.5 us, is the block's own chain: the rotation, the
+//    update, a barrier;
 //  * SMEM_MAX_M < m <= CLUSTER_MAX_M = 320: G alone, double-buffered, in
 //    the distributed shared memory of a cluster of nb <= 8 blocks (one
 //    cluster a matrix). Block k owns the column pairs [k w, (k+1) w) (about
@@ -79,25 +82,39 @@
 //    receiving block's mbarrier; a block waits on its own mbarrier for what
 //    it is owed, after a block barrier for its own stores (see the cluster
 //    kernel for why nothing is overwritten early or read too soon). V
-//    leaves the chain: its
-//    rows never move and V_{r+1} = V_r J_r needs only the rotations, so the
-//    makers also log each round's rotations (c of them, 1,280 bytes at
-//    m = 160) to device memory, and a second kernel applies them to V, a
-//    row a warp (rows are independent: no block barrier a round), with the
-//    log staged through shared memory V_CHUNK rounds at a time. It also
-//    ranks the eigenvalues and writes V in their order. What bounds it,
-//    measured on an H100 (scripts/port/k2_variants.py): at m = 160 a round
-//    takes 1.68 us, about 1.4 us of it in the cluster kernel, where the
-//    update's own share is about 0.29 us and the rotation's chain about
-//    0.22 us; the
-//    rest is the exchange (the makers' reads across an edge, the st.async
-//    of rotations into eight blocks, the wait). The vector pass adds
-//    0.26 us a round, a latency chain of one warp (more SMs do not help).
-//    At m = 288 the update grows to about 0.8 us a round: w = 18 pairs of
-//    144 rows a block;
-//  * m > CLUSTER_MAX_M: the first variant's code on buffers in device memory
-//    (scratch from the wrapper; 8 MiB at m = 512, L2-resident): one block,
-//    G and V streamed through one SM's L2 port every round.
+//    leaves the chain: its rows never move and V_{r+1} = V_r J_r needs only
+//    the rotations, so the makers also log each round's rotations (c of
+//    them, 1,280 bytes at m = 160) to device memory, and a second kernel
+//    applies them to V, a row a warp (rows are independent: no block
+//    barrier a round), with the log staged through shared memory V_CHUNK
+//    rounds at a time. It also ranks the eigenvalues and writes V in their
+//    order. At m = 160 a round takes 1.68 us, about 1.4 us of it in the
+//    cluster kernel, where the update's own share is about 0.29 us and the
+//    rotation's chain about 0.22 us; the rest is the exchange (the makers'
+//    reads across an edge, the st.async of rotations into eight blocks,
+//    the wait). The vector pass adds 0.26 us a round, a latency chain of
+//    one warp (more SMs do not help). At m = 288 the update grows to about
+//    0.8 us a round: w = 18 pairs of 144 rows a block;
+//  * m > CLUSTER_MAX_M: G in c64 is 2 MiB at m = 512, more than a portable
+//    cluster (1.86 MB) or one of 16 (3.72 MB) holds twice. The cluster's
+//    storage and schedule run instead on a group of nb <= MAX_GROUP blocks
+//    of GROUP_PAIRS column pairs (32 blocks of 8 at m = 512, 172,164 bytes
+//    a block) that a cooperative launch makes resident together, trading
+//    through device memory (L2): each block also keeps, twice, the columns
+//    of the pair beside each edge (a ghost pair), so that every maker reads
+//    its own shared memory; the owners store each output column that a
+//    neighbour keeps into that neighbour's inbox (of a ghost pair's
+//    columns only the rows its makers read), the makers log the rotations,
+//    and each round ends with one fenced flag a block, which every block
+//    waits for before it reads the log (the next rotations) and its inbox
+//    (see the group kernel), each thread issuing all its loads before its
+//    first store. The vector pass is the cluster variant's. A flag barrier
+//    across 32 blocks costs 1.1 us on the H100 (a flag's round trip
+//    between two blocks 1.24 us), 2.0 us with four columns of m = 512
+//    aboard; a round of the group kernel costs 3.5 us at c64 m = 512, 3.2
+//    us without the update: the exchange and the makers' chain behind it
+//    hold the round. The vector pass adds 0.57 us a round at m = 512 (8
+//    column pairs a lane): 14.5 ms in all at 7 sweeps.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -111,6 +128,9 @@ constexpr int SMEM_MAX_M = 84;  // largest m whose G and V buffers fit in shared
 constexpr int CLUSTER_MAX_M = 320;  // largest m whose G a cluster holds
 constexpr int MAX_CLUSTER = 8;      // blocks a cluster (the portable limit)
 constexpr int PAIRS_PER_BLOCK = 10;  // column pairs a cluster block aims at
+constexpr int GROUP_PAIRS = 8;  // column pairs a group block aims at
+constexpr int MAX_GROUP = 32;   // blocks a group (one warp reads their flags)
+constexpr int RECV_UNROLL = 2;  // received rows a group thread loads at once
 constexpr int V_WARPS = 8;   // rows of V a block of the vector pass
 constexpr int V_CHUNK = 16;  // rounds of rotations it stages at a time
 constexpr int MAX_THREADS = 1024;
@@ -219,11 +239,11 @@ __device__ __forceinline__ bool before(float x, int i, float y, int j) {
   return x < y || (x == y && i < j);
 }
 
-template <typename E, bool IN_SMEM>
+template <typename E>
 __global__ void __launch_bounds__(MAX_THREADS)
 jacobi_eigh_kernel(const typename E::T* __restrict__ h_in, float* __restrict__ lam_out,
-                   typename E::T* __restrict__ v_out, typename E::T* work,
-                   const int* __restrict__ dst_in, int m, int Y, int sweeps) {
+                   typename E::T* __restrict__ v_out, const int* __restrict__ dst_in,
+                   int m, int Y, int sweeps) {
   using T = typename E::T;
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = m / 2;
@@ -240,8 +260,8 @@ jacobi_eigh_kernel(const typename E::T* __restrict__ h_in, float* __restrict__ l
   const bool owner = y < Y;
   const int makers = (c * Y + 31) / 32 * 32;
 
-  T* G0 = IN_SMEM ? reinterpret_cast<T*>(smem) : work + b * 4 * mm;
-  Rot<E>* R = reinterpret_cast<Rot<E>*>(IN_SMEM ? smem + 4 * mm * sizeof(T) : smem);
+  T* G0 = reinterpret_cast<T*>(smem);
+  Rot<E>* R = reinterpret_cast<Rot<E>*>(smem + 4 * mm * sizeof(T));
   int* dst = reinterpret_cast<int*>(R + 2 * c);
   int* src = dst + m;
   int* perm = src + m;
@@ -620,6 +640,301 @@ jacobi_cluster_kernel(const typename E::T* __restrict__ h_in, float* __restrict_
   cluster.sync();  // no block leaves while another may reach its memory
 }
 
+// ---------------------- the group variant (320 < m <= 512) ----------------------
+
+// The cluster's storage and schedule on a group of nb co-resident blocks
+// (launched cooperatively, so every block of the grid runs at once), with
+// device memory (L2) in place of distributed shared memory. Block k owns
+// the column pairs [k w, k w + wk) as a cluster block does and keeps, twice,
+// the columns of the pairs [k w - 1, k w + wk]: its own and one ghost pair
+// on each side. A row of this storage is L = 2 (w + 2) elements: the w + 2
+// even slots, then the odd ones; pair P at index P - k w + 1. A pair's
+// next diagonal block depends only on the columns of the pairs beside it
+// (the tournament moves a column by at most one pair), so every maker
+// reads its own block's shared memory, and each round's update writes
+// every column of the storage (a column whose position comes from another
+// block's pair arrives from that block's owners).
+
+// the storage's column of slot s in a block whose first pair is k0
+__device__ __forceinline__ int ext_col(int s, int c, int k0, int W2) {
+  return s < c ? s - k0 + 1 : s - c - k0 + 1 + W2;
+}
+
+// the rows of pair P's columns that a block of pairs [n0, n0 + wk) needs
+// from a neighbour: all of an own pair's, and of a ghost pair's only those
+// its makers read (the rows of pairs P - 2 to P + 1)
+__device__ __forceinline__ int2 rows_needed(int P, int n0, int wk, int m) {
+  if (P >= n0 && P < n0 + wk) return make_int2(0, m);
+  return make_int2(max(2 * (P - 2), 0), min(2 * (P + 2), m));
+}
+
+// the inbox column of pair P's even (odd = 0) or odd slot in block n, of
+// first pair n0 and wk pairs: the slots of its first two storage pairs,
+// then of its last two (only those come from a neighbour)
+__device__ __forceinline__ int inbox_col(int P, int odd, int n0, int wk) {
+  const int lp = P - n0 + 1;
+  return 2 * (lp <= 1 ? lp : lp - wk + 2) + odd;
+}
+
+// a load from device memory that skips this SM's L1, which may hold an
+// older copy of a line that another SM wrote
+__device__ __forceinline__ Rot<C64> load_l2(const Rot<C64>* p) {
+  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+  Rot<C64> r;
+  r.c = v.x;
+  r.z = make_float2(v.z, v.w);
+  return r;
+}
+__device__ __forceinline__ Rot<F32> load_l2(const Rot<F32>* p) {
+  const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+  Rot<F32> r;
+  r.c = v.x;
+  r.z = v.y;
+  return r;
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// one warp: wait until each of the group's nb (<= 32) flags reaches seq;
+// a block still missing after a second traps (the launch fails) instead
+// of hanging the card
+__device__ __forceinline__ void group_wait(const unsigned* flag, int nb, unsigned seq) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long t0 = 0;
+  for (;;) {
+    const bool done = lane >= nb || ld_acquire(flag + lane) >= seq;
+    if (__all_sync(0xffffffffu, done)) return;
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (t0 == 0) t0 = now;
+    if (now - t0 > 1000000000ull) __trap();
+  }
+}
+
+// G's rounds on groups of nb blocks: group g takes the matrices g, g + G,
+// ... (G groups in the grid) one after another. Writes every round's
+// rotations to rot_log [B, rounds, c] and the final diagonal to diag [B, m]
+// (by position, unsorted) for the vector pass. inbox: per block, two
+// parities of 8 columns of m elements; flags: per block a count of the
+// rounds it has published (zeroed before the launch).
+//
+// A round in block k: the makers make the next round's rotations from this
+// round's G and rotations (all in this block's shared memory) while the
+// owners update G, storing each output column here and, where its pair is
+// in a neighbour's storage, also into that neighbour's inbox; the makers
+// log their rotations. Then a block barrier, and one thread publishes the
+// round (a fence, then its flag = seq, the block's count of rounds). One
+// warp waits until every flag of the group reaches seq; after a block
+// barrier every thread reads the next rotations from the log and the
+// columns its neighbours stored into its inbox, into shared memory (loads
+// that skip L1). Nothing is read before it is written: the writes precede
+// their block's fence and flag, the reads follow the acquire of that flag.
+// Nothing is overwritten while it may still be read: a block writes an
+// inbox parity again two rounds later, after every block has published the
+// round in between, which it does only after its reads of that parity.
+// The log is written once a round and never overwritten.
+template <typename E>
+__global__ void __launch_bounds__(MAX_THREADS)
+jacobi_group_kernel(const typename E::T* __restrict__ h_in, float* __restrict__ diag,
+                    Rot<E>* rot_log, typename E::T* inbox, unsigned* flags,
+                    const int* __restrict__ dst_in, int batch, int m, int w, int Y,
+                    int sweeps) {
+  using T = typename E::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int c = m / 2;
+  const int nb = (c + w - 1) / w;
+  const int groups = gridDim.x / nb;
+  const int g = blockIdx.x / nb, k = blockIdx.x % nb;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int k0 = k * w;           // this block's first column pair
+  const int wk = min(w, c - k0);  // and how many it owns
+  const int W2 = w + 2, L = 2 * W2;
+  const int rounds = sweeps * (m - 1);
+  const int buf = m * L;          // elements of one G buffer
+
+  T* G0 = reinterpret_cast<T*>(smem);  // G_r, G_{r+1}: buffers r & 1, 1 - (r & 1)
+  Rot<E>* R = reinterpret_cast<Rot<E>*>(G0 + 2 * buf);  // this round's rotations
+  int* dst = reinterpret_cast<int*>(R + c);
+  int* src = dst + m;
+  // received: inbox columns, storage columns, first rows, and where each
+  // column's rows start in the list of all received rows; their count
+  int* recv = src + m;
+  unsigned* flag = flags + g * nb;
+  const size_t box = (size_t)8 * m;  // elements of one inbox parity
+  const T* mine = inbox + (size_t)(g * nb + k) * 2 * box;
+
+  for (int j = tid; j < m; j += nthr) dst[j] = dst_in[j];
+  __syncthreads();
+  for (int j = tid; j < m; j += nthr) src[dst[j]] = j;
+  __syncthreads();
+  if (tid == 0) {  // the storage's columns that a neighbour's owners write
+    int n = 0, rows_in = 0;
+    for (int lp = 0; lp < wk + 2; ++lp) {
+      const int P = k0 - 1 + lp;
+      for (int odd = 0; odd < 2 && P >= 0 && P < c; ++odd) {
+        const int kw = (src[2 * P + odd] >> 1) / w;
+        if (kw == k) continue;
+        const int col = inbox_col(P, odd, k0, wk);
+        if ((kw != k - 1 && kw != k + 1) || n == 8 || col < 0 || col >= 8) __trap();
+        const int2 rows = rows_needed(P, k0, wk, m);
+        recv[n] = col;
+        recv[8 + n] = lp + odd * W2;
+        recv[16 + n] = rows.x;
+        recv[24 + n] = rows_in;
+        rows_in += rows.y - rows.x;
+        ++n;
+      }
+    }
+    for (int j = n; j < 8; ++j) recv[24 + j] = rows_in;
+    recv[32] = rows_in;
+  }
+
+  // owner (K, y): column pair k0 + K, row pairs y, y + Y, ...; its two
+  // destination columns here, and where a neighbour keeps one of them too,
+  // that neighbour's inbox column (without the parity) and the rows it needs
+  const int K = tid % w, y = tid / w;
+  const int J = (c + Y - 1) / Y;
+  const bool owner = y < Y && K < wk;
+  const int makers = (w * Y + 31) / 32 * 32;
+  const int Kp = k0 + min(K, wk - 1);
+  int lcol[2];
+  int2 sent[2];
+  T* out[2];
+  for (int e = 0; e < 2; ++e) {
+    const int s = slot(dst[2 * Kp + e], c);
+    const int P = s < c ? s : s - c;
+    const int n = k > 0 && P <= k0 ? k - 1 : k + 1 < nb && P >= k0 + wk - 1 ? k + 1 : -1;
+    const int wn = min(w, c - n * w);
+    lcol[e] = ext_col(s, c, k0, W2);
+    sent[e] = n < 0 ? make_int2(0, 0) : rows_needed(P, n * w, wn, m);
+    out[e] = n < 0 ? nullptr
+                   : inbox + (size_t)(g * nb + n) * 2 * box +
+                         (size_t)inbox_col(P, s >= c, n * w, wn) * m;
+  }
+  // maker j of this block: pair k0 + j, whose next diagonal block comes
+  // from positions a and bb of this round, in pairs A and B beside it
+  const int i = k0 + tid - makers;
+  const bool maker = tid >= makers && i < k0 + wk;
+  const int a = maker ? src[2 * i] : 2 * k0, bb = maker ? src[2 * i + 1] : 2 * k0 + 1;
+  const int A = a >> 1, sa = a & 1, B = bb >> 1, sb = bb & 1;
+  if (maker && (A < k0 - 1 || A > k0 + wk || B < k0 - 1 || B > k0 + wk)) __trap();
+  const int oAA = 2 * A * L + A - k0 + 1, oBB = 2 * B * L + B - k0 + 1;
+  const int oAB = 2 * A * L + B - k0 + 1;
+
+  unsigned seq = 0;
+  for (int b = g; b < batch; b += groups) {
+    const T* H = h_in + (size_t)b * m * m;
+    Rot<E>* rots = rot_log + (size_t)b * rounds * c;
+    __syncthreads();  // the last matrix's diagonal is read
+    for (int e = tid; e < buf; e += nthr) {
+      const int row = e / L, l = e % L;
+      const int odd = l >= W2, lp = l - odd * W2, P = k0 - 1 + lp;
+      if (P >= 0 && P < c && lp <= wk + 1) G0[e] = H[row * m + 2 * P + odd];
+    }
+    // round 0's rotations, from H: every block makes all of them
+    for (int j = tid; j < c; j += nthr) {
+      const Rot<E> r0 = rotation<E>(E::re(H[2 * j * m + 2 * j]),
+                                    E::re(H[(2 * j + 1) * m + 2 * j + 1]),
+                                    H[2 * j * m + 2 * j + 1]);
+      R[j] = r0;
+      if (k == 0 && rounds > 0) rots[j] = r0;
+    }
+    __syncthreads();
+
+    for (int r = 0; r < rounds; ++r) {
+      const int n = r & 1, t = r + 1;  // G_r in buffer n; round t's data
+      const size_t par = (size_t)(++seq & 1) * box;
+      const T* Gc = G0 + n * buf;
+      T* Gn = G0 + (1 - n) * buf;
+      const bool make = maker && t < rounds;
+      Rot<E> next;
+      if (make) {
+        const Rot<E> rA = R[A], rB = R[B];
+        const float d0 = E::re(entry<E>(Gc + oAA, L, W2, sa, sa, rA, rA));
+        const float d1 = E::re(entry<E>(Gc + oBB, L, W2, sb, sb, rB, rB));
+        const T wv = entry<E>(Gc + oAB, L, W2, sa, sb, rA, rB);
+        next = rotation<E>(d0, d1, wv);
+      }
+      if (owner) {
+        const Rot<E> rk = R[Kp];
+        for (int j = 0; j < J; ++j) {
+          const int I = y + j * Y;
+          if (I >= c) break;
+          const Rot<E> ri = R[I];
+          const int p = 2 * I, q = p + 1;
+          const int2 dI = *reinterpret_cast<const int2*>(dst + p);
+          T x0, x1, y0, y1, xq0, xq1;
+          // rows p, q of J_I^H G in the pair's two columns, then times J_K
+          E::left(ri.c, ri.z, Gc[p * L + K + 1], Gc[q * L + K + 1], x0, xq0);
+          E::left(ri.c, ri.z, Gc[p * L + W2 + K + 1], Gc[q * L + W2 + K + 1], x1, xq1);
+          for (int h = 0; h < 2; ++h) {
+            const int row = h ? dI.y : dI.x;
+            E::right(rk.c, rk.z, h ? xq0 : x0, h ? xq1 : x1, y0, y1);
+            Gn[row * L + lcol[0]] = y0;
+            Gn[row * L + lcol[1]] = y1;
+            if (row >= sent[0].x && row < sent[0].y) out[0][par + row] = y0;
+            if (row >= sent[1].x && row < sent[1].y) out[1][par + row] = y1;
+          }
+        }
+      }
+      if (make) rots[t * c + i] = next;
+      __syncthreads();  // this block's round is written
+      if (tid == 0) {
+        __threadfence();
+        st_relaxed(flag + k, seq);
+      }
+      if (tid < 32) group_wait(flag, nb, seq);
+      __syncthreads();  // every block's round is written
+      // this thread's share of the next rotations and of the received rows,
+      // every load issued before the first store (one trip to L2)
+      Rot<E> rnext;
+      const bool take = t < rounds && tid < c;
+      if (take) rnext = load_l2(rots + t * c + tid);
+      for (int e0 = 0; e0 < recv[32]; e0 += RECV_UNROLL * nthr) {
+        T v[RECV_UNROLL];
+        int at[RECV_UNROLL];
+#pragma unroll
+        for (int u = 0; u < RECV_UNROLL; ++u) {
+          const int e = e0 + u * nthr + tid;
+          at[u] = -1;
+          if (e < recv[32]) {
+            int j = 0;
+            while (j < 7 && recv[25 + j] <= e) ++j;
+            const int row = recv[16 + j] + e - recv[24 + j];
+            v[u] = __ldcg(mine + par + (size_t)recv[j] * m + row);
+            at[u] = row * L + recv[8 + j];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < RECV_UNROLL; ++u) {
+          if (at[u] >= 0) Gn[at[u]] = v[u];
+        }
+      }
+      if (take) R[tid] = rnext;
+      if (t < rounds) {  // (every launch has c <= threads)
+        for (int j = tid + nthr; j < c; j += nthr) R[j] = load_l2(rots + t * c + j);
+      }
+      __syncthreads();
+    }
+
+    // the diagonal at this block's positions
+    const T* Gf = G0 + (rounds & 1) * buf;
+    for (int l = tid; l < 2 * wk; l += nthr) {
+      const int odd = l >= wk, Kl = l - odd * wk;
+      const int pos = 2 * (k0 + Kl) + odd;
+      diag[(size_t)b * m + pos] = E::re(Gf[pos * L + Kl + 1 + odd * W2]);
+    }
+  }
+}
+
 __device__ __forceinline__ void cp_async8(void* s, const void* g) {
   const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sa), "l"(g));
@@ -633,18 +948,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // V's rounds from the rotation log: block (row group, matrix) gives each of
 // its V_WARPS warps one row of V (double-buffered, in slots); every round a
-// lane applies J_K to its column pairs K = lane, lane + 32, ... and stores
-// them at their next slots. Rows are independent, so a round ends with a
+// lane applies J_K to its column pairs K = lane, lane + 32, ... (at most
+// KMAX of them) and stores them at their next slots. Rows are independent, so a round ends with a
 // warp barrier; the block waits together only to stage the next V_CHUNK
 // rounds of rotations (cp.async, double-buffered). Then the eigenvalues are
 // ranked (each block ranks all m) and the rows written in their order.
-template <typename E>
+template <typename E, int KMAX>
 __global__ void __launch_bounds__(32 * V_WARPS)
 jacobi_vectors_kernel(const float* __restrict__ diag, const Rot<E>* __restrict__ rot_log,
                       float* __restrict__ lam_out, typename E::T* __restrict__ v_out,
                       const int* __restrict__ dst_in, int m, int rounds) {
   using T = typename E::T;
-  constexpr int KMAX = (CLUSTER_MAX_M / 2 + 31) / 32;  // column pairs a lane
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = m / 2;
   const int groups = (m + V_WARPS - 1) / V_WARPS;
@@ -741,12 +1055,13 @@ void row_pairs(int c, int w, int* Y, int* threads) {
   }
 }
 
-// dynamic shared memory: G and V (double-buffered) while m <= SMEM_MAX_M,
-// the rotations of two rounds, and dst, src and the final order (m ints each)
+// dynamic shared memory of the one-block variant (m <= SMEM_MAX_M): G and V
+// (double-buffered), the rotations of two rounds, and dst, src and the
+// final order (m ints each)
 template <typename E>
 constexpr size_t smem_bytes(int m) {
-  return (m <= SMEM_MAX_M ? 4 * (size_t)m * m * sizeof(typename E::T) : 0) +
-         (size_t)m * sizeof(Rot<E>) + 3 * (size_t)m * sizeof(int);
+  return 4 * (size_t)m * m * sizeof(typename E::T) + (size_t)m * sizeof(Rot<E>) +
+         3 * (size_t)m * sizeof(int);
 }
 
 // a cluster block's: its G (m rows of 2w, double-buffered), the rotations of
@@ -757,6 +1072,17 @@ constexpr size_t cluster_smem(int m, int w) {
          2 * (size_t)m * sizeof(int) + 16;
 }
 
+// a group block's: its storage (m rows of 2 (w + 2), double-buffered), one
+// round's rotations, dst and src, and the received columns (33 ints)
+template <typename E>
+constexpr size_t group_smem(int m, int w) {
+  return 4 * (size_t)m * (w + 2) * sizeof(typename E::T) + (size_t)(m / 2) * sizeof(Rot<E>) +
+         (2 * (size_t)m + 33) * sizeof(int);
+}
+
+// the vector pass's column pairs a lane, for m up to `most`
+constexpr int lane_pairs(int most) { return (most / 2 + 31) / 32; }
+
 // the vector pass's: two stages of rotations, V_WARPS rows twice, dst, the
 // order and the diagonal
 template <typename E>
@@ -765,33 +1091,62 @@ constexpr size_t vector_smem(int m) {
          2 * (size_t)V_WARPS * m * sizeof(typename E::T) + 3 * (size_t)m * 4;
 }
 
-// a cluster of nb blocks of w column pairs: about PAIRS_PER_BLOCK a block,
-// at most MAX_CLUSTER blocks, and no empty block
-void cluster_shape(int m, int* nb, int* w) {
+// nb blocks of w column pairs: about `pairs` a block, at most `most`
+// blocks, and no empty block (the cluster variant: PAIRS_PER_BLOCK and
+// MAX_CLUSTER; the group variant: GROUP_PAIRS and MAX_GROUP)
+void split_shape(int m, int pairs, int most, int* nb, int* w) {
   const int c = m / 2;
-  const int n = min((c + PAIRS_PER_BLOCK - 1) / PAIRS_PER_BLOCK, MAX_CLUSTER);
+  const int n = min((c + pairs - 1) / pairs, most);
   *w = (c + n - 1) / n;
   *nb = (c + *w - 1) / *w;
 }
 
-// cluster_shape's w is at most the larger of PAIRS_PER_BLOCK and
-// ceil(c / MAX_CLUSTER); the shared memory grows with m and w, and a
-// block's one warp of makers takes up to w + 2 pairs (maker_block)
+// split_shape's w is at most the larger of `pairs` and ceil(c / most); the
+// shared memory grows with m and w, and a block's one warp of makers takes
+// up to w + 2 pairs (maker_block) in a cluster, w in a group
 constexpr int MAX_W = PAIRS_PER_BLOCK > (CLUSTER_MAX_M / 2 + MAX_CLUSTER - 1) / MAX_CLUSTER
                           ? PAIRS_PER_BLOCK
                           : (CLUSTER_MAX_M / 2 + MAX_CLUSTER - 1) / MAX_CLUSTER;
 static_assert(cluster_smem<C64>(CLUSTER_MAX_M, MAX_W) <= SMEM_OPT_IN,
               "every cluster block's G fits in its shared memory");
 static_assert(MAX_W + 2 <= 32, "a cluster block's makers fit in one warp");
+static_assert(MAX_M / 2 <= GROUP_PAIRS * MAX_GROUP && MAX_GROUP <= 32,
+              "a group block takes at most GROUP_PAIRS pairs, and one warp "
+              "reads the group's flags");
+static_assert(group_smem<C64>(MAX_M, GROUP_PAIRS) <= SMEM_OPT_IN,
+              "every group block's storage fits in its shared memory");
+static_assert(vector_smem<C64>(MAX_M) <= SMEM_OPT_IN,
+              "the vector pass's rows and stages fit in its shared memory");
+
+// device scratch of the cluster and group variants, in bytes from its
+// start: the rotation log [B, rounds, c], the diagonal [B, m] and, for the
+// group variant, the inboxes [B, nb, 2, 8, m] of h's type and the flags
+// [B, nb] (sized for B groups; a launch uses at most B)
+struct Scratch {
+  size_t diag, inbox, flags, total;
+};
+
+constexpr size_t align256(size_t n) { return (n + 255) / 256 * 256; }
+
+template <typename E>
+Scratch scratch(int batch, int m, int sweeps) {
+  Scratch s = {};
+  const size_t B = batch;
+  s.diag = align256(B * sweeps * (m - 1) * (m / 2) * sizeof(Rot<E>));
+  s.inbox = align256(s.diag + B * m * sizeof(float));
+  s.flags = s.total = s.inbox;
+  if (m > CLUSTER_MAX_M) {
+    int nb = 0, w = 0;
+    split_shape(m, GROUP_PAIRS, MAX_GROUP, &nb, &w);
+    s.flags = align256(s.inbox + B * nb * 16 * m * sizeof(typename E::T));
+    s.total = s.flags + B * nb * sizeof(unsigned);
+  }
+  return s;
+}
 
 template <typename E>
 size_t work_bytes(int batch, int m, int sweeps) {
-  if (m <= SMEM_MAX_M) return 0;
-  if (m <= CLUSTER_MAX_M) {  // the rotation log and the diagonal
-    return (size_t)batch * ((size_t)sweeps * (m - 1) * (m / 2) * sizeof(Rot<E>) +
-                            (size_t)m * sizeof(float));
-  }
-  return (size_t)batch * 4 * m * m * sizeof(typename E::T);  // G and V, twice
+  return m <= SMEM_MAX_M ? 0 : scratch<E>(batch, m, sweeps).total;
 }
 
 template <typename E>
@@ -802,7 +1157,7 @@ int launch(const void* h, void* lam, void* v, void* work, const int* dst, int ba
   static bool opted_in[MAX_DEVICES] = {};
   if (!opted_in[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
-        jacobi_eigh_kernel<E, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        jacobi_eigh_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes<E>(SMEM_MAX_M));
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(jacobi_cluster_kernel<E>,
@@ -810,48 +1165,91 @@ int launch(const void* h, void* lam, void* v, void* work, const int* dst, int ba
                                  SMEM_OPT_IN);
     }
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(jacobi_vectors_kernel<E>,
+      err = cudaFuncSetAttribute(jacobi_group_kernel<E>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM_OPT_IN);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(jacobi_vectors_kernel<E, lane_pairs(CLUSTER_MAX_M)>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)vector_smem<E>(CLUSTER_MAX_M));
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(jacobi_vectors_kernel<E, lane_pairs(MAX_M)>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)vector_smem<E>(MAX_M));
     }
     if (err != cudaSuccess) return (int)err;
     opted_in[dev] = true;
   }
+  const T* H = static_cast<const T*>(h);
   const int c = m / 2;
   int rows = 0, threads = 0;
-  if (m <= SMEM_MAX_M || m > CLUSTER_MAX_M) {
+  if (m <= SMEM_MAX_M) {
     row_pairs(c, c, &rows, &threads);
-    const auto kernel = m <= SMEM_MAX_M ? jacobi_eigh_kernel<E, true>
-                                        : jacobi_eigh_kernel<E, false>;
-    kernel<<<batch, threads, smem_bytes<E>(m), stream>>>(
-        static_cast<const T*>(h), static_cast<float*>(lam), static_cast<T*>(v),
-        static_cast<T*>(work), dst, m, rows, sweeps);
+    jacobi_eigh_kernel<E><<<batch, threads, smem_bytes<E>(m), stream>>>(
+        H, static_cast<float*>(lam), static_cast<T*>(v), dst, m, rows, sweeps);
     return (int)cudaGetLastError();
   }
-  int nb = 0, w = 0;
-  cluster_shape(m, &nb, &w);
-  row_pairs(c, w, &rows, &threads);
   const int rounds = sweeps * (m - 1);
-  Rot<E>* rot_log = static_cast<Rot<E>*>(work);
-  float* diag = reinterpret_cast<float*>(rot_log + (size_t)batch * rounds * c);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nb * batch);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = cluster_smem<E>(m, w);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nb;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, jacobi_cluster_kernel<E>,
-                                             static_cast<const T*>(h), diag, rot_log,
-                                             dst, m, w, rows, sweeps);
+  const Scratch s = scratch<E>(batch, m, sweeps);
+  char* base = static_cast<char*>(work);
+  Rot<E>* rot_log = reinterpret_cast<Rot<E>*>(base);
+  float* diag = reinterpret_cast<float*>(base + s.diag);
+  int nb = 0, w = 0;
+  cudaError_t err;
+  if (m <= CLUSTER_MAX_M) {
+    split_shape(m, PAIRS_PER_BLOCK, MAX_CLUSTER, &nb, &w);
+    row_pairs(c, w, &rows, &threads);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nb * batch);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = cluster_smem<E>(m, w);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nb;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, jacobi_cluster_kernel<E>, H, diag, rot_log, dst, m, w,
+                             rows, sweeps);
+  } else {
+    // every block of a group must run at once: as many groups as the card
+    // holds resident (a cooperative launch refuses a grid that does not fit,
+    // where an ordinary one could hang), each taking its matrices in turn
+    split_shape(m, GROUP_PAIRS, MAX_GROUP, &nb, &w);
+    row_pairs(c, w, &rows, &threads);
+    const size_t smem = group_smem<E>(m, w);
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, jacobi_group_kernel<E>,
+                                                        threads, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const int ngroups = min(batch, per_sm * sms / nb);
+    if (ngroups < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    // each block's flag counts its rounds over its group's matrices
+    if ((unsigned long long)((batch + ngroups - 1) / ngroups) * rounds >= 0xffffffffull) {
+      return (int)cudaErrorInvalidValue;
+    }
+    T* inbox = reinterpret_cast<T*>(base + s.inbox);
+    unsigned* flags = reinterpret_cast<unsigned*>(base + s.flags);
+    err = cudaMemsetAsync(flags, 0, (size_t)ngroups * nb * sizeof(unsigned), stream);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {(void*)&H,     (void*)&diag, (void*)&rot_log, (void*)&inbox,
+                    (void*)&flags, (void*)&dst,  (void*)&batch,   (void*)&m,
+                    (void*)&w,     (void*)&rows, (void*)&sweeps};
+    err = cudaLaunchCooperativeKernel((const void*)jacobi_group_kernel<E>, dim3(ngroups * nb),
+                                      dim3(threads), args, smem, stream);
+  }
   if (err != cudaSuccess) return (int)err;
+  // the cluster variant's m keep the vector pass's registers of 5 pairs a
+  // lane (8 would cost its rounds 2-3 %)
+  const auto vectors = m <= CLUSTER_MAX_M ? jacobi_vectors_kernel<E, lane_pairs(CLUSTER_MAX_M)>
+                                          : jacobi_vectors_kernel<E, lane_pairs(MAX_M)>;
   const int groups = (m + V_WARPS - 1) / V_WARPS;
-  jacobi_vectors_kernel<E><<<groups * batch, 32 * V_WARPS, vector_smem<E>(m), stream>>>(
+  vectors<<<groups * batch, 32 * V_WARPS, vector_smem<E>(m), stream>>>(
       diag, rot_log, static_cast<float*>(lam), static_cast<T*>(v), dst, m, rounds);
   return (int)cudaGetLastError();
 }
@@ -859,9 +1257,9 @@ int launch(const void* h, void* lam, void* v, void* work, const int* dst, int ba
 }  // namespace
 
 // Bytes of device scratch (`work`) that qlt_jacobi_eigh needs for these
-// arguments: 0 for m <= 84; for m <= 320 the rotation log and the diagonal,
-// B (sweeps (m - 1) (m / 2) rotations + m floats); above, G and V twice,
-// [B, 4, m, m] of h's type.
+// arguments: 0 for m <= 84; above, the rotation log and the diagonal, B
+// (sweeps (m - 1) (m / 2) rotations + m floats); above 320 also the group
+// variant's inboxes and flags, B nb (16 m elements of h's type + 1 int).
 extern "C" size_t qlt_jacobi_eigh_work_bytes(int is_complex, int batch, int m,
                                              int sweeps) {
   if (batch <= 0 || m < 2 || m > MAX_M || m % 2 != 0 || sweeps < 0) return 0;
@@ -872,8 +1270,10 @@ extern "C" size_t qlt_jacobi_eigh_work_bytes(int is_complex, int batch, int m,
 // float32; v [B, m, m] of h's type; dst [m] int32, the position moves of one
 // round; work: qlt_jacobi_eigh_work_bytes bytes of device memory, 16-byte
 // aligned (null where that is 0). All on device `device`; launches on
-// `stream` (one kernel, or for 84 < m <= 320 the cluster kernel and the
-// vector pass) and returns the CUDA error of the launch (0 on success).
+// `stream` (one kernel for m <= 84; above, the cluster or group kernel,
+// after zeroing the group's flags, and the vector pass) and returns the
+// CUDA error of the launch (0 on success): a group launch the card cannot
+// hold resident is refused (cudaErrorCooperativeLaunchTooLarge).
 extern "C" int qlt_jacobi_eigh(const void* h, void* lam, void* v, void* work,
                                const void* dst, int is_complex, int batch, int m,
                                int sweeps, int device, void* stream) {

@@ -19,18 +19,34 @@ cuts the latency of a round:
 - a real variant: float32 input stays float32 (9 m^2 flops a round, half
   the memory) and V comes back real.
 
-By m: up to ``SMEM_MAX_M`` one block a matrix holds G and V in shared
-memory and updates both each round. Up to ``CLUSTER_MAX_M``, G alone is
-split by column pairs over the shared memory of a cluster of up to 8
-blocks; each round the blocks trade the next rotations and the edge
-columns by ``st.async`` into each other's shared memory, each waiting on
-its own mbarrier (no cluster barrier), and log the rotations to device
-memory; a pair's rotation is made in the block that holds the column of
-its next diagonal block that crossed an edge, if one did, so that no
-block reads a column in another before it has landed there; a second kernel then applies the log to V, one row a warp, and
-writes V in eigenvalue order. Above, the first variant's code runs on
-buffers in device memory. Every variant sums each entry as the plain
-version does, so on the card K2 reproduces it bit for bit.
+By m, and what bounds each variant on an H100 (PERF.md):
+
+- up to ``SMEM_MAX_M`` (84): one block a matrix holds G and V in shared
+  memory and updates both each round; a round is bound by the block's
+  own latency (0.7-1.5 us: the rotation's chain, the update, a barrier);
+- up to ``CLUSTER_MAX_M`` (320): G alone is split by column pairs over
+  the shared memory of a cluster of up to 8 blocks; each round the blocks
+  trade the next rotations and the edge columns by ``st.async`` into each
+  other's shared memory, each waiting on its own mbarrier (no cluster
+  barrier), and log the rotations to device memory; a pair's rotation is
+  made in the block that holds the column of its next diagonal block that
+  crossed an edge, if one did, so that no block reads a column in another
+  before it has landed there. A round (1.7-2.8 us) is bound by that
+  exchange;
+- above, up to ``MAX_M`` (512): the same storage on a group of up to 32
+  blocks (8 column pairs each) that the launch makes resident together
+  (cooperatively; it refuses a grid the card cannot hold), exchanging
+  through L2: each block also keeps the columns of the pair beside each
+  edge, so every rotation is made from its own shared memory; its owners
+  store the columns a neighbour keeps into that neighbour's inbox, its
+  makers log the rotations, and a fenced flag a block publishes the round,
+  which every block waits for before it reads the log and its inbox. A
+  round is bound by that flag's trip through L2.
+
+Above ``SMEM_MAX_M`` a second kernel then applies the rotation log to V,
+one row a warp, and writes V in eigenvalue order. Every variant sums each
+entry as the plain version does, so on the card K2 reproduces it bit for
+bit.
 
 :func:`jacobi_eigh_k2` is the wrapper. A matrix on the CPU goes to the plain
 torch version (:func:`jacobi_eigh_k2_reference`, the solver of
@@ -60,7 +76,7 @@ from qilaplace_tpu_torch.ops.kernel_build import load_kernel
 SOURCE = "jacobi_eigh.cu"
 MAX_M = 512      # must match MAX_M in the CUDA source
 SMEM_MAX_M = 84  # must match SMEM_MAX_M: larger m splits G over a cluster
-CLUSTER_MAX_M = 320  # must match CLUSTER_MAX_M: larger m keeps G, V in device memory
+CLUSTER_MAX_M = 320  # must match CLUSTER_MAX_M: larger m splits G over a group
 
 
 def jacobi_eigh_k2_reference(H: torch.Tensor, *, sweeps: int | None = None):
@@ -147,9 +163,9 @@ def jacobi_eigh_k2(H: torch.Tensor, *, sweeps: int | None = None):
     CPU matrix: the plain torch version, any dtype and m. CUDA matrix: the
     kernel, which takes float32 or complex64 with m even, 2 <= m <= 512;
     it returns float32 eigenvalues and V of the input's dtype (a float32
-    input runs the real variant). Every launch (for SMEM_MAX_M < m <=
-    CLUSTER_MAX_M the cluster kernel and its vector pass, one launch) adds
-    one to ``jacobi_eigh_k2.launches`` and to
+    input runs the real variant). Every launch (for m > SMEM_MAX_M the
+    cluster or group kernel and the vector pass, one launch) adds one to
+    ``jacobi_eigh_k2.launches`` and to
     ``jacobi_eigh_k2.by_shape[(m, B, "c64" or "f32", sweeps)]``."""
     if H.device.type == "cpu":
         return jacobi_eigh_k2_reference(H, sweeps=sweeps)

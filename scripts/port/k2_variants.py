@@ -1,5 +1,6 @@
-"""Kernel K2's cluster variant (84 < m <= 320) timed against variants of
-its source, and the cluster barrier timed alone.
+"""Kernel K2's cluster (84 < m <= 320) and group (m > 320) variants timed
+against variants of their source, and their exchange primitives timed
+alone.
 
 Each variant is the committed ``csrc/jacobi_eigh.cu`` with text
 substitutions, written to ``build/k2_variants/``, built as the kernels are
@@ -7,9 +8,6 @@ substitutions, written to ``build/k2_variants/``, built as the kernels are
 through its own ``qlt_jacobi_eigh``:
 
 - ``base``: the source as it is;
-- ``device-memory``: ``CLUSTER_MAX_M`` set to 84, so every m > 84 takes the
-  one-block kernel on device-memory buffers (the design before the
-  cluster variant);
 - ``ppb-20``: 20 column pairs a cluster block (a cluster of 4 at m = 160;
   the source aims at 10, a cluster of 8);
 - ``vchunk-8``, ``vchunk-32``: the vector pass stages 8 or 32 rounds of
@@ -26,14 +24,22 @@ through its own ``qlt_jacobi_eigh``:
   checked); ``exchange-only``: neither the update nor the makers'
   arithmetic, only the round's stores and exchange (timed, not checked);
 - ``test-wait``: the mbarrier polled with ``test_wait`` instead of the
-  suspending ``try_wait``.
+  suspending ``try_wait``;
+- ``group-pairs-11``: 11 column pairs a group block (24 blocks at m = 512;
+  the source aims at 8, 32 blocks);
+- ``recv-unroll-1``, ``recv-unroll-4``: a group thread loads 1 or 4 of
+  the rows its block received before it stores them (the source: 2);
+- ``group-no-update``: the group's owners skip their update of G (they
+  still store, and send their columns; timed, not checked): the exchange's
+  share of a round.
 
 A name ending in ``.cu`` is taken as a whole source (named by its stem), so
 an earlier design of the kernel can be timed beside the committed one.
 
 Every checked variant's eigenvalues are held against the plain version
-on the card (same sweeps, same dtype) and must be bit-identical to it; V
-is held to ``jacobi_kernels.rounding_bar``. Each shape is then timed
+on the card (same sweeps, same dtype) and must be bit-identical to it, a
+second run must repeat the first bit for bit, and V is held to
+``jacobi_kernels.rounding_bar``. Each shape is then timed
 (CUDA events, in turns, median of 4 batches of 5 launches; of 1 for the
 plain version) beside the plain version and ``torch.linalg.eigh``, with
 the time a Jacobi round.
@@ -44,10 +50,16 @@ Before that, ``barrier``: a kernel that runs 10,000 block barriers
 each one's latency: ``cluster.sync()`` of cooperative groups (what the
 kernel calls), ``barrier.cluster.arrive.release.aligned`` /
 ``wait.acquire.aligned`` and the relaxed arrive (no memory ordering: the
-floor).
+floor). Then the group variant's primitives (``chip_smoke.py``
+``phase_k2_primitives``: a flag round trip through L2, flag and counter
+barriers across 16-32 co-resident blocks) and the cluster exchange of
+``scripts/port/k2_primitives.cu`` at 8 and 16 blocks (16 only where the
+card schedules a non-portable cluster of 16): one float a block by
+``st.async`` to both neighbours, or to every block.
 
-Arguments: the variants to run (default all). Run from the repository
-root on the card: python scripts/port/k2_variants.py
+Arguments: ``--m 384,512`` times only those m; the rest are the variants
+to run (default all). Run from the repository root on the card:
+python scripts/port/k2_variants.py
 """
 
 from __future__ import annotations
@@ -80,25 +92,23 @@ def vchunk(n):
 
 VARIANTS = {
     "base": [],
-    "device-memory": [("constexpr int CLUSTER_MAX_M = 320;",
-                       "constexpr int CLUSTER_MAX_M = 84;")],
     "ppb-20": ppb(20),
     "vchunk-8": vchunk(8),
     "vchunk-32": vchunk(32),
     "no-vectors": [("  const int groups = (m + V_WARPS - 1) / V_WARPS;\n"
-                    "  jacobi_vectors_kernel<E><<<",
+                    "  vectors<<<",
                     "  const int groups = 0;\n"
-                    "  if (groups) jacobi_vectors_kernel<E><<<")],
+                    "  if (groups) vectors<<<")],
 }
 VARIANTS["no-update"] = [
     ("        E::left(ri.c, ri.z, Gc[p * L + K], Gc[q * L + K], x0, xq0);\n"
      "        E::left(ri.c, ri.z, Gc[p * L + w + K], Gc[q * L + w + K], x1, xq1);",
      "        x0 = x1 = xq0 = xq1 = E::eye(false);"),
-    ("          E::right(rk.c, rk.z, h ? xq0 : x0, h ? xq1 : x1, y0, y1);",
-     "          y0 = y1 = E::eye(false);")]
+    ("\n          E::right(rk.c, rk.z, h ? xq0 : x0, h ? xq1 : x1, y0, y1);",
+     "\n          y0 = y1 = E::eye(false);")]
 VARIANTS["no-rotation"] = [(
-    "      next = rotation<E>(d0, d1, wv);",
-    "      next.c = d0 + d1;\n      next.z = wv;")]
+    "\n      next = rotation<E>(d0, d1, wv);",
+    "\n      next.c = d0 + d1;\n      next.z = wv;")]
 VARIANTS["no-edges"] = [
     ("        edge_bytes += m * (int)sizeof(T);", "        edge_bytes += 0;"),
     ("            st_async(far0 + far + row * L * (unsigned)sizeof(T), y0, bar0 + bar);",
@@ -117,14 +127,30 @@ VARIANTS["test-wait"] = [(
 for n in (2, 4):
     VARIANTS[f"vwarps-{n}"] = [("constexpr int V_WARPS = 8;",
                                 f"constexpr int V_WARPS = {n};")]
+VARIANTS["group-pairs-11"] = [("constexpr int GROUP_PAIRS = 8;",
+                               "constexpr int GROUP_PAIRS = 11;")]
+for n in (1, 4):
+    VARIANTS[f"recv-unroll-{n}"] = [("constexpr int RECV_UNROLL = 2;",
+                                     f"constexpr int RECV_UNROLL = {n};")]
+VARIANTS["group-no-update"] = [
+    ("          E::left(ri.c, ri.z, Gc[p * L + K + 1], Gc[q * L + K + 1], x0, xq0);\n"
+     "          E::left(ri.c, ri.z, Gc[p * L + W2 + K + 1], Gc[q * L + W2 + K + 1], x1, "
+     "xq1);",
+     "          x0 = x1 = xq0 = xq1 = E::eye(false);"),
+    ("\n            E::right(rk.c, rk.z, h ? xq0 : x0, h ? xq1 : x1, y0, y1);",
+     "\n            y0 = y1 = E::eye(false);")]
 UNCHECKED = {"no-vectors", "no-update", "no-rotation", "no-edges",
-             "exchange-only"}
+             "exchange-only", "group-no-update"}
 
-# (m, B, complex, sweeps): the gate path's device-memory shapes, the
-# largest complex64 solve below cutoff 1e-10, the real variant, route edges
+# (m, B, complex, sweeps): the gate path's cluster shapes, the largest
+# complex64 solve below cutoff 1e-10, the real variant, route edges; the
+# group variant at the dft tutorial's m = 512 (7 sweeps), the default
+# profile at m = 384, the real variant and B = 4
 SHAPES = [(160, 1, True, 7), (160, 1, True, 4), (160, 1, True, 6),
           (288, 1, True, 7), (160, 1, False, 6), (86, 1, True, 9),
-          (128, 1, True, 9), (320, 1, True, 7), (288, 3, True, 7)]
+          (128, 1, True, 9), (320, 1, True, 7), (288, 3, True, 7),
+          (512, 1, True, 7), (384, 1, True, 11), (512, 1, False, 7),
+          (512, 4, True, 7), (322, 1, True, 7)]
 
 BARRIER = r"""
 #include <cooperative_groups.h>
@@ -192,7 +218,7 @@ def build(names):
         Path(paths[name]).write_text(text)
     barrier = OUT / "barrier.cu"
     barrier.write_text(BARRIER)
-    infos = build_kernels(*paths.values(), str(barrier))
+    infos = build_kernels(*paths.values(), str(barrier), str(cs.K2_PRIMITIVES))
     for name, path in paths.items():
         lines = [ln.split("Compiling entry function")[-1].split("for")[0]
                  .strip(" '") if "Compiling entry" in ln else ln.split(":")[-1]
@@ -225,13 +251,53 @@ def barrier_latency(loop, smi, threads=832, iters=10000):
               f"a barrier ({iters} in {ms:.3f} ms); card {smi}", flush=True)
 
 
+def cluster_exchange(smi, iters=10000, threads=736):
+    """Microseconds an iteration of the cluster exchange of
+    k2_primitives.cu: one float a block by st.async to both neighbours
+    (mode 0) or to every block (mode 1), at 8 and 16 blocks, where the
+    card holds such a cluster at all (qlt_cluster_fit)."""
+    import ctypes
+
+    from qilaplace_tpu_torch.ops.kernel_build import load_kernel
+
+    lib = load_kernel(str(cs.K2_PRIMITIVES))
+    fit, loop = lib.qlt_cluster_fit, lib.qlt_cluster_loop
+    fit.argtypes, fit.restype = [ctypes.c_int] * 2, ctypes.c_int
+    loop.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    loop.restype = ctypes.c_int
+    sink = torch.zeros(1, dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for nb in (8, 16):
+        n = fit(nb, threads)
+        print(f"[prim] clusters of {nb} blocks of {threads} threads the card "
+              f"holds at once: {n}", flush=True)
+        if n < 1:
+            continue
+        for mode, what in ((0, "both neighbours"), (1, "every block")):
+            def run():
+                err = loop(mode, nb, threads, iters, sink.data_ptr(), stream)
+                cs.check(err == 0, f"cluster loop: CUDA error {err}")
+            run()
+            torch.cuda.synchronize()
+            ms = float(np.median([cs.event_ms(run, reps=1) for _ in range(3)]))
+            print(f"[prim] cluster of {nb}, st.async to {what}: "
+                  f"{1e3 * ms / iters:.4f} us an iteration; card {smi}",
+                  flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("k2_variants: no CUDA device")
     import qilaplace_tpu_torch  # noqa: F401  (sets full-fp32 matmuls)
     from qilaplace_tpu_torch.ops import jacobi_kernels as jk
 
-    names = sys.argv[1:] or list(VARIANTS)
+    args = sys.argv[1:]
+    only = None
+    if "--m" in args:
+        at = args.index("--m")
+        only = {int(x) for x in args[at + 1].split(",")}
+        del args[at:at + 2]
+    names = args or list(VARIANTS)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -240,10 +306,14 @@ def main():
     print(f"[build] {len(libs)} variants and the barrier loop in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     barrier_latency(loop, smi)
+    cs.phase_k2_primitives(smi)
+    cluster_exchange(smi)
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(6)
     for m, B, cplx, sweeps in SHAPES:
+        if only is not None and m not in only:
+            continue
         H = torch.from_numpy(cs.hermitian(rng, B, m, complex_=cplx)).to(
             dev).contiguous()  # the kernel reads H row by row
         dst = jk._dst_table(m, dev)
@@ -274,14 +344,21 @@ def main():
             if name in UNCHECKED:
                 continue
             lam, V = outs[name]
-            same = float((lam == lam_p).double().mean())
+            differ = int((lam != lam_p).sum())
+            first = lam.clone(), V.clone()
+            run()  # a second run must repeat the first bit for bit
+            torch.cuda.synchronize()
+            again = torch.equal(lam, first[0]) and torch.equal(V, first[1])
             got = jk.figures(H, lam, V)
-            print(f"[check] {name} {shape}: lam bit-identical {same:.1%}, V "
-                  f"{float((V == V_p).double().mean()):.1%}; " + "; ".join(
+            print(f"[check] {name} {shape}: lam bit-identical "
+                  f"{1 - differ / lam.numel():.1%} ({differ} of {lam.numel()} "
+                  f"differ), V {float((V == V_p).double().mean()):.1%}, "
+                  f"second run equal: {again}; " + "; ".join(
                       f"{k} {v:.2e} plain {plain[k]:.2e}"
                       for k, v in got.items()), flush=True)
-            cs.check(same == 1.0, f"variant {name} {shape}: eigenvalues differ "
+            cs.check(differ == 0, f"variant {name} {shape}: eigenvalues differ "
                      "from the plain version")
+            cs.check(again, f"variant {name} {shape}: a second run differs")
             for k, v in got.items():
                 cs.check(v <= jk.rounding_bar(m, plain[k]),
                          f"variant {name} {shape}: {k} {v:.2e}")

@@ -14,10 +14,12 @@ the same bar, or twice the plain version's own figure on the same input
 where that is larger (its float32 rounding floor, or its unconverged
 residual after few sweeps). On the cluster variant's shapes (84 < m <= 320:
 the gate path's m = 160 at 4, 6 and 7 sweeps, the largest complex64 solve
-below cutoff 1e-10, m = 288, and the real variant) the eigenvalues must
-equal the plain version's bit for bit: every variant sums each entry as
-the plain version's matrix products do, also with 132 matrices at once,
-launch after launch.
+below cutoff 1e-10, m = 288, and the real variant) and the group variant's
+(320 < m <= 512: the route edges, the dft tutorial's m = 512 at 6 and 7
+sweeps, the real variant) the eigenvalues must equal the plain version's
+bit for bit: every variant sums each entry as the plain version's matrix
+products do, also with more clusters or groups than the card holds at
+once, launch after launch.
 """
 
 import numpy as np
@@ -90,10 +92,13 @@ def test_k2_encoder_shapes(cuda_device, m, B, polish):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", [2, jk.SMEM_MAX_M, jk.SMEM_MAX_M + 2, 256,
-                               jk.CLUSTER_MAX_M, jk.CLUSTER_MAX_M + 2, 512])
+                               jk.CLUSTER_MAX_M, jk.CLUSTER_MAX_M + 2, 384,
+                               448, 512])
 def test_k2_route_edges(cuda_device, m):
+    # above CLUSTER_MAX_M the group variant: bit-identical eigenvalues
     rng = np.random.default_rng(m)
-    check(hermitian(rng, 4, m), default_sweeps(m), cuda_device)
+    check(hermitian(rng, 4, m), default_sweeps(m), cuda_device,
+          identical=m > jk.CLUSTER_MAX_M)
 
 
 @pytest.mark.gpu
@@ -132,6 +137,55 @@ def test_k2_cluster_many_clusters_repeated(cuda_device, m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,B,complex_,sweeps", [
+    (512, 1, True, 6), (512, 1, True, 7), (384, 1, True, 11),
+    (512, 1, False, 7)])
+def test_k2_group_shapes(cuda_device, m, B, complex_, sweeps):
+    # the group variant at the dft tutorial's shapes (its exact apply's
+    # chi-512 canonicalize), m = 384 and the real variant: bit-identical
+    # eigenvalues; one launch counted under its shape
+    rng = np.random.default_rng(m + B + sweeps + complex_)
+    key = (m, B, "c64" if complex_ else "f32", sweeps)
+    before = jk.jacobi_eigh_k2.by_shape[key]
+    check(hermitian(rng, B, m, complex_=complex_), sweeps, cuda_device,
+          identical=True)
+    assert jk.jacobi_eigh_k2.by_shape[key] == before + 1
+
+
+@pytest.mark.gpu
+def test_k2_group_many_groups_repeated(cuda_device):
+    # more groups than the card holds at once (9 matrices of m = 512 on
+    # groups of 32 blocks: 4 resident on 132 SMs, each taking its matrices
+    # in turn), three launches: every run's eigenvalues equal the plain
+    # version's bit for bit and every run's V the first's. A block that read
+    # a column or a rotation before its writer published it would show as a
+    # run that differs
+    rng = np.random.default_rng(512)
+    H = torch.from_numpy(hermitian(rng, 9, 512)).to(cuda_device)
+    lam_p, _ = jk.jacobi_eigh_k2_reference(H, sweeps=7)
+    V0 = None
+    for _ in range(3):
+        lam, V = jk.jacobi_eigh_k2(H, sweeps=7)
+        torch.cuda.synchronize()
+        assert torch.equal(lam, lam_p)
+        V0 = V if V0 is None else V0
+        assert torch.equal(V, V0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,complex_", [(512, True), (384, False)])
+def test_k2_group_slots_alone(cuda_device, m, complex_):
+    # B = 4 distinct matrices: each slot equal to its matrix launched alone
+    rng = np.random.default_rng(40 + m)
+    H = torch.from_numpy(hermitian(rng, 4, m, complex_=complex_)).to(cuda_device)
+    lam, V = jk.jacobi_eigh_k2(H, sweeps=6)
+    for b in range(4):
+        lam_b, V_b = jk.jacobi_eigh_k2(H[b:b + 1], sweeps=6)
+        torch.cuda.synchronize()
+        assert torch.equal(lam[b], lam_b[0]) and torch.equal(V[b], V_b[0])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sweeps", [default_sweeps(24), 12])
 def test_k2_degenerate_spectrum(cuda_device, sweeps):
     # clusters converge more slowly: at default sweeps (7) the plain version
@@ -149,7 +203,8 @@ def test_k2_zero_padded(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [2, 24, 56, jk.SMEM_MAX_M, jk.SMEM_MAX_M + 2, 256])
+@pytest.mark.parametrize("m", [2, 24, 56, jk.SMEM_MAX_M, jk.SMEM_MAX_M + 2, 256,
+                               512])
 def test_k2_real_variant(cuda_device, m):
     # float32 stays float32 through the kernel: the launch is counted as a
     # real solve, V comes back real, and it holds against the plain version

@@ -38,6 +38,9 @@ CONSTS = {k: int(v) for k, v in
 MAX_THREADS = 1024  # the kernels' __launch_bounds__
 PAIRS_PER_BLOCK = 10  # a cluster block's column pairs, aimed at
 MAX_CLUSTER = 8
+GROUP_PAIRS = 8  # a group block's column pairs, aimed at
+MAX_GROUP = 32
+SMEM_OPT_IN = 232448  # dynamic shared memory a block may opt in to
 
 
 def geometry(m, w=None, k=0):
@@ -68,12 +71,22 @@ def geometry(m, w=None, k=0):
     return (c, Y, J, threads), blocks
 
 
-def cluster_shape(m):
-    """(nb, w) as ``cluster_shape`` picks them: about PAIRS_PER_BLOCK
-    column pairs a block, at most MAX_CLUSTER blocks, and no empty block."""
+def split_shape(m, pairs, most):
+    """(nb, w) as ``split_shape`` picks them: about ``pairs`` column pairs
+    a block, at most ``most`` blocks, and no empty block."""
     c = m // 2
-    w = -(-c // min(-(-c // PAIRS_PER_BLOCK), MAX_CLUSTER))
+    w = -(-c // min(-(-c // pairs), most))
     return -(-c // w), w
+
+
+def cluster_shape(m):
+    """(nb, w) of the cluster variant (84 < m <= 320)."""
+    return split_shape(m, PAIRS_PER_BLOCK, MAX_CLUSTER)
+
+
+def group_shape(m):
+    """(nb, w) of the group variant (m > 320)."""
+    return split_shape(m, GROUP_PAIRS, MAX_GROUP)
 
 
 def test_constants_match_the_cuda_source():
@@ -83,6 +96,10 @@ def test_constants_match_the_cuda_source():
     assert CONSTS["MAX_THREADS"] == MAX_THREADS
     assert CONSTS["PAIRS_PER_BLOCK"] == PAIRS_PER_BLOCK
     assert CONSTS["MAX_CLUSTER"] == MAX_CLUSTER
+    assert CONSTS["GROUP_PAIRS"] == GROUP_PAIRS
+    assert CONSTS["MAX_GROUP"] == MAX_GROUP
+    assert CONSTS["SMEM_OPT_IN"] == SMEM_OPT_IN
+    assert CONSTS["RECV_UNROLL"] >= 1  # a group thread's loads in flight
     assert jk.SMEM_MAX_M < jk.CLUSTER_MAX_M < jk.MAX_M
 
 
@@ -107,12 +124,16 @@ def test_position_moves_replay_the_tournament(m):
 
 
 @pytest.mark.parametrize("m", [2, 24, 40, 56, 80, 84, 86, 96, 128, 160, 256,
-                               288, 320, 322, 512])
+                               288, 320, 322, 384, 448, 512])
 def test_thread_geometry_covers_every_block_once(m):
     c = m // 2
     if jk.SMEM_MAX_M < m <= jk.CLUSTER_MAX_M:
         nb, w = cluster_shape(m)
         assert nb <= MAX_CLUSTER and nb * w >= c > (nb - 1) * w
+    elif m > jk.CLUSTER_MAX_M:
+        nb, w = group_shape(m)
+        assert nb <= MAX_GROUP and nb * w >= c > (nb - 1) * w
+        assert w == GROUP_PAIRS  # 8 pairs a block: 21 blocks at 322, 32 at 512
     else:
         nb, w = 1, c
     blocks = []
@@ -125,8 +146,8 @@ def test_thread_geometry_covers_every_block_once(m):
     if m <= jk.SMEM_MAX_M:
         # one row pair a thread up to m = 56, two on the rest of the QFT path
         assert J == (1 if m <= 56 else 2)
-    if m > jk.CLUSTER_MAX_M:  # the one-block code on device buffers
-        assert J >= 2
+    if m > jk.CLUSTER_MAX_M:  # a group block: 8 column pairs, 2-3 row pairs a thread
+        assert J == (3 if m > 448 else 2)
     # the gate path's m = 160 and the largest complex64 solve below cutoff
     # 1e-10, m = 288, both on clusters of 8
     if m in (160, 288):
@@ -372,18 +393,28 @@ def cluster_emulate(H, sweeps):
             log.append(rot)
     diag = np.array([G[kb][j, lb].real for j in range(m)
                      for kb, lb in [slot_block(slot(j, c), c, w)]])
-    # the vector pass: every row from the log alone
+    lam, V = vector_pass(H, diag, log[:rounds])
+    return lam, V, log
+
+
+def vector_pass(H, diag, log):
+    """The vector pass: V = I in slots, every logged round's rotations
+    applied to every row; the eigenvalues (the final diagonal, by
+    position) ascending and V in their order."""
+    m = H.shape[-1]
+    c = m // 2
+    dst = np.asarray(jk.position_moves(m))
     cols = slot(np.arange(m), c)
     K = np.arange(c)
     s0, s1 = slot(dst[2 * K], c), slot(dst[2 * K + 1], c)
     V = np.zeros_like(H)
     V[np.arange(m), cols] = 1
-    for c0, z in log[:rounds]:
+    for c0, z in log:
         Vn = np.empty_like(V)
         Vn[:, s0], Vn[:, s1] = right(c0, z, V[:, K], V[:, c + K])
         V = Vn
     order = np.argsort(diag, kind="stable")
-    return diag[order], V[:, cols[order]], log
+    return diag[order], V[:, cols[order]]
 
 
 @pytest.mark.parametrize("complex_", [True, False])
@@ -406,3 +437,235 @@ def test_cluster_emulation_matches_the_one_block_rounds(m, complex_):
     plain = jk.figures(Ht, lam_p, V_p)
     for k, v in got.items():
         assert v <= jk.rounding_bar(m, plain[k]), (k, v, plain[k])
+
+
+def ext_col(s, c, k0, W2):
+    """The group block's storage column of slot s (``ext_col``): pair P at
+    index P - k0 + 1 of W2 = w + 2, even slots first."""
+    return s - k0 + 1 if s < c else s - c - k0 + 1 + W2
+
+
+def inbox_col(P, odd, n0, wk):
+    """The inbox column of pair P's even or odd slot in the block of first
+    pair n0 and wk pairs (``inbox_col``)."""
+    lp = P - n0 + 1
+    return 2 * (lp if lp <= 1 else lp - wk + 2) + odd
+
+
+def rows_needed(P, n0, wk, m):
+    """The rows of pair P's columns that the block of pairs [n0, n0 + wk)
+    needs from a neighbour (``rows_needed``): all of an own pair's, of a
+    ghost pair's the rows of pairs P - 2 to P + 1."""
+    if n0 <= P < n0 + wk:
+        return 0, m
+    return max(2 * (P - 2), 0), min(2 * (P + 2), m)
+
+
+def group_plan(m):
+    """What each block of the group variant works out once a launch, as the
+    kernel does: its first pair and count, the (inbox column, storage
+    column, rows) it receives, per own pair its two output columns and the
+    neighbour (inbox column, rows) each also goes to, and per own pair the
+    (a, bb) its maker reads. Asserts what the kernel traps on: a column
+    from a block that is not a neighbour, more than 8 received columns, a
+    maker reading outside the storage."""
+    c = m // 2
+    nb, w = group_shape(m)
+    W2 = w + 2
+    dst = np.asarray(jk.position_moves(m))
+    src = np.argsort(dst)
+    plan = []
+    for k in range(nb):
+        k0, wk = k * w, min(w, c - k * w)
+        recv = []
+        for lp in range(wk + 2):
+            P = k0 - 1 + lp
+            for odd in (0, 1):
+                if not 0 <= P < c:
+                    continue
+                kw = (src[2 * P + odd] >> 1) // w
+                if kw == k:
+                    continue
+                col = inbox_col(P, odd, k0, wk)
+                assert kw in (k - 1, k + 1) and 0 <= col < 8, (m, k, P)
+                recv.append((col, lp + odd * W2, rows_needed(P, k0, wk, m)))
+        assert len(recv) <= 8
+        outs = []
+        for K in range(k0, k0 + wk):
+            pair_out = []
+            for e in (0, 1):
+                s = slot(dst[2 * K + e], c)
+                P = s if s < c else s - c
+                n = (k - 1 if k > 0 and P <= k0 else
+                     k + 1 if k + 1 < nb and P >= k0 + wk - 1 else None)
+                lc = ext_col(s, c, k0, W2)
+                assert 0 <= lc < 2 * W2 and (lc % W2) <= wk + 1
+                wn = None if n is None else min(w, c - n * w)
+                box = (None if n is None else
+                       (n, inbox_col(P, s >= c, n * w, wn),
+                        rows_needed(P, n * w, wn, m)))
+                pair_out.append((lc, box))
+            outs.append(pair_out)
+        makers = []
+        for i in range(k0, k0 + wk):
+            a, bb = src[2 * i], src[2 * i + 1]
+            assert k0 - 1 <= a >> 1 <= k0 + wk and k0 - 1 <= bb >> 1 <= k0 + wk
+            makers.append((a, bb))
+        plan.append(dict(k0=k0, wk=wk, recv=recv, outs=outs, makers=makers))
+    return nb, w, plan
+
+
+# m of the group variant: every count of pairs in the last block (1 to 8 at
+# m = 322 to 336), the tutorials' 384 and 512, and 448, 510
+GROUP_MS = list(range(jk.CLUSTER_MAX_M + 2, 338, 2)) + [384, 448, 510, 512]
+
+
+@pytest.mark.parametrize("m", GROUP_MS)
+def test_group_exchange_reaches_neighbours_only(m):
+    """Each block of the group variant receives only from its neighbours,
+    at most 8 columns, every column it receives is sent to it exactly once
+    by the block that writes it, and every storage column is written each
+    round by this block or received; what the kernel's traps and inbox
+    layout assume."""
+    nb, w, plan = group_plan(m)
+    W2 = w + 2
+    sent = [[] for _ in range(nb)]
+    for k, b in enumerate(plan):
+        for pair_out in b["outs"]:
+            for _, box in pair_out:
+                if box is not None:
+                    sent[box[0]].append(box[1:])
+    for k, b in enumerate(plan):
+        assert sorted(sent[k]) == sorted((col, rows)
+                                         for col, _, rows in b["recv"]), m
+        local = {lc for pair_out in b["outs"] for lc, _ in pair_out}
+        got = local | {lc for _, lc, _ in b["recv"]}
+        storage = {lp + odd * W2 for lp in range(b["wk"] + 2)
+                   for odd in (0, 1) if 0 <= b["k0"] - 1 + lp < m // 2}
+        assert got == storage and not local & {lc for _, lc, _ in b["recv"]}
+        # a block receives at most 2 full columns and 2 x 8 rows of ghosts
+        assert sum(hi - lo for _, _, (lo, hi) in b["recv"]) <= 2 * m + 16
+
+
+@pytest.mark.parametrize("dtype,size", [("c64", 8), ("f32", 4)])
+def test_group_blocks_fit_in_shared_memory(dtype, size):
+    """``group_smem`` (storage twice, one round's rotations, dst, src and 33
+    ints) and ``vector_smem`` within the opt-in, from the source's own
+    constants, for every m of the group variant."""
+    rot = 16 if dtype == "c64" else 8  # Rot<E>: c, then z (aligned)
+    for m in range(jk.CLUSTER_MAX_M + 2, jk.MAX_M + 1, 2):
+        _, w = group_shape(m)
+        group = 4 * m * (w + 2) * size + (m // 2) * rot + (2 * m + 33) * 4
+        vector = 2 * CONSTS["V_CHUNK"] * (m // 2) * rot \
+            + 2 * CONSTS["V_WARPS"] * m * size + 3 * m * 4
+        assert group <= SMEM_OPT_IN and vector <= SMEM_OPT_IN, (m, group, vector)
+
+
+def group_emulate(H, sweeps):
+    """The group variant's rounds in numpy, in its storage: block k keeps
+    the columns of pairs [k w - 1, k w + wk] (``ext_col``), twice; its
+    owners write every output column there and, where a neighbour keeps
+    it too, into that neighbour's inbox (parity by the count of rounds);
+    its makers make their own pairs' next rotations from its storage alone
+    and write them to the log, which every block then reads as the next
+    round's table; each block copies what its inbox received into its
+    storage (of a ghost pair's columns only the rows its makers read).
+    Every round's storage starts as NaN and every inbox column is
+    NaN again once read, so a column read before it is written, or never
+    sent, shows. Returns the eigenvalues ascending, V in their order and
+    the log."""
+    m = H.shape[-1]
+    c = m // 2
+    nb, w, plan = group_plan(m)
+    W2, L = w + 2, 2 * (w + 2)
+    dst = np.asarray(jk.position_moves(m))
+    rounds = sweeps * (m - 1)
+    nan = np.asarray(np.nan, H.dtype)
+    G = []
+    for k, b in enumerate(plan):
+        g = np.full((m, L), nan)
+        for lp in range(b["wk"] + 2):
+            P = b["k0"] - 1 + lp
+            if 0 <= P < c:
+                g[:, lp], g[:, lp + W2] = H[:, 2 * P], H[:, 2 * P + 1]
+        G.append(g)
+    pair = np.arange(c)
+    rot = rotation(H[2 * pair, 2 * pair].real, H[2 * pair + 1, 2 * pair + 1].real,
+                   H[2 * pair, 2 * pair + 1])
+    log = [rot]
+    inbox = np.full((nb, 2, 8, m), nan)
+    I = np.arange(c)
+    p, q = 2 * I, 2 * I + 1
+    seq = 0
+
+    def entry_at(g, k0, P, Q, s, t, R):
+        """entry (s, t) of J_P^H G[P, Q] J_Q from a block's storage"""
+        (cP, zP), (cQ, zQ) = ((R[0][X], R[1][X]) for X in (P, Q))
+        lq = Q - k0 + 1
+        x00, x10 = left(cP, zP, g[2 * P, lq], g[2 * P + 1, lq])
+        x01, x11 = left(cP, zP, g[2 * P, lq + W2], g[2 * P + 1, lq + W2])
+        y = right(cQ, zQ, np.where(s, x10, x00), np.where(s, x11, x01))
+        return np.where(t, y[1], y[0])
+
+    for r in range(rounds):
+        seq += 1
+        par = seq & 1
+        nxt = np.empty((3, c), H.dtype)
+        Gn = [np.full((m, L), nan) for _ in range(nb)]
+        c0, z = log[-1]  # every block's table: this round's log entry
+        for k, b in enumerate(plan):
+            k0, wk = b["k0"], b["wk"]
+            if r + 1 < rounds:  # the makers, from this block's storage
+                a, bb = np.asarray(b["makers"]).T
+                A, sa, B, sb = a >> 1, a & 1, bb >> 1, bb & 1
+                i = np.arange(k0, k0 + wk)
+                nxt[:, i] = (entry_at(G[k], k0, A, A, sa, sa, log[-1]),
+                             entry_at(G[k], k0, B, B, sb, sb, log[-1]),
+                             entry_at(G[k], k0, A, B, sa, sb, log[-1]))
+            # the owners: every row pair I against each own column pair K
+            K = np.arange(k0, k0 + wk)
+            lk = K - k0 + 1
+            ci, zi = c0[I][:, None], z[I][:, None]
+            x0, xq0 = left(ci, zi, G[k][p][:, lk], G[k][q][:, lk])
+            x1, xq1 = left(ci, zi, G[k][p][:, lk + W2], G[k][q][:, lk + W2])
+            ys = right(c0[K], z[K], x0, x1), right(c0[K], z[K], xq0, xq1)
+            for j, pair_out in enumerate(b["outs"]):
+                for e, (lc, box) in enumerate(pair_out):
+                    Gn[k][dst[p], lc] = ys[0][e][:, j]
+                    Gn[k][dst[q], lc] = ys[1][e][:, j]
+                    if box is not None:  # only the rows the neighbour needs
+                        n, col, (lo, hi) = box
+                        for rows, y in ((dst[p], ys[0][e][:, j]),
+                                        (dst[q], ys[1][e][:, j])):
+                            at = (rows >= lo) & (rows < hi)
+                            inbox[n, par, col, rows[at]] = y[at]
+        # every block published; each reads its inbox
+        for k, b in enumerate(plan):
+            for col, lc, (lo, hi) in b["recv"]:
+                Gn[k][lo:hi, lc] = inbox[k, par, col, lo:hi]
+                inbox[k, par, col] = nan
+        G = Gn
+        if r + 1 < rounds:
+            rot = rotation(nxt[0].real, nxt[1].real, nxt[2])
+            log.append(rot)
+    diag = np.empty(m, np.float32)
+    for k, b in enumerate(plan):
+        for K in range(b["k0"], b["k0"] + b["wk"]):
+            lk = K - b["k0"] + 1
+            diag[2 * K] = G[k][2 * K, lk].real
+            diag[2 * K + 1] = G[k][2 * K + 1, lk + W2].real
+    lam, V = vector_pass(H, diag, log[:rounds])
+    return lam, V, log
+
+
+@pytest.mark.parametrize("complex_", [True, False])
+@pytest.mark.parametrize("m", [322, 384])
+def test_group_emulation_matches_the_one_block_rounds(m, complex_):
+    rng = np.random.default_rng(m + 11 * complex_)
+    A = rng.normal(size=(m, m)) + (1j * rng.normal(size=(m, m)) if complex_ else 0)
+    H = ((A + np.conj(A.T)) / 2).astype(np.complex64 if complex_ else np.float32)
+    lam, V, log = group_emulate(H, 1)
+    assert len(log) == m - 1 and V.dtype == H.dtype
+    assert np.isfinite(lam).all() and np.isfinite(V).all()
+    lam_1, V_1 = emulate(H, 1)  # the same arithmetic in one block's storage
+    assert np.array_equal(lam, lam_1) and np.array_equal(V, V_1)
