@@ -103,9 +103,13 @@ the tutorials) at full size and checks them:
              .find_poles(128, 128, 24): two gate builds (wr = 2 pi, 0.5),
              the zip-up apply, K1 reads of the chi-128 product states; the
              pole within max(5e-4, 4 * 8 * 2 pi / N) of e^{-lam +- i w};
-             the search's wall time, K1 and K2 launches; then its two
-             transforms replayed through zt_mpo(engine="gate") and apply,
-             each timed, and K1 against its plain version in complex128 at
+             the search's wall time, K1 and K2 launches (and those of
+             each gate build and encode by (m, B, dtype, sweeps): each
+             eigensolve of a factor fold one launch for its three stacks,
+             B = 3; of a ZTMPS fan-out split, one for its n sites); then
+             its two transforms replayed through zt_mpo(engine="gate") and
+             apply, each timed, and K1 against its plain version in
+             complex128 at
              each scan's configs (B = 16384, 16641, 2401) on the replayed
              product states, whose K1 reads must be the search's own;
 11. DT       DTPipeline(20, 2 pi, chi=64, build_cutoff=1e-9) on the
@@ -115,18 +119,25 @@ the tutorials) at full size and checks them:
              sin_decay materialized (2^30 float32 on the card), rsvd encode
              (k=50, p=5, q=2, cutoff 1e-9, maxdim 128), build_zt_mpo(30,
              2 pi, cutoff=1e-9, chi=128) in complex64 as its two steps,
-             each timed (the factor folds, then the fuse), the zip-up
-             apply and a
+             each timed (the factor folds, one batched program for the
+             three stacks, then the fuse), each step's K2 launches by
+             (m, B, dtype, sweeps) logged, the zip-up apply and a
              chi_grid read of the 64 x 64 grid of the first 64 near-peak k
              and l of scan_samples(30) (B = 4096), scored against the
              oracle (logged, not gated); K1 against its plain version in
-             complex128 on that chi-128 product chain; then K2 against its
-             plain version, as in 4, at every (m, B, dtype, sweeps) the
+             complex128 on that chi-128 product chain; then the n=20
+             build's batched fold (wr = 2 pi) against each of its three
+             stacks folded alone: the same bonds, cores within 1e-5 of
+             the largest entry (bit-identity logged), K2 launches of one
+             stack at B = 3, each slot of K2 at those shapes equal to its
+             matrix alone, both folds timed; then K2 against its plain
+             version, as in 4, at every (m, B, dtype, sweeps) the
              gate phases launched it with that no earlier path did, K1
              timed on the product chain as in 8, K2 timed at the gate
              phases' three most launched new shapes and at the shapes of
              the cluster variant (see 8);
-13. trace    one n=20 gate build under torch.profiler, as in 9.
+13. trace    one n=20 gate build under torch.profiler, as in 9, with its
+             K2 launches by call and shape.
 
 14. batch    the batched QFT path (qilaplace_tpu_torch.parallel):
              batched_qft_pipeline over 8 signals x_j = sin(a_b j),
@@ -170,13 +181,14 @@ K2's line).
              dtype=complex64), each timed on the host clock, synchronised;
              each asserts its tutorial's facts at its complex64 bars and
              writes no file; each must launch K2 with no plain Jacobi call
-             on the card, and zt must launch K1; every K1 launch of a
-             tutorial (recorded by a hook that counts nothing) is held
-             against K1's plain version in complex128 on its own chain and
-             configs; then K2 against its plain
-             version, as in 4, at every shape they launched that no
-             earlier phase did. Then K2's group variant (m > 320) timed as
-             in 8 (one plain call and 10 kernel calls a turn): c64 m = 384
+             on the card, and zt must launch K1; the K2 launches of each
+             of its builds and encodes are logged by shape; every K1
+             launch of a tutorial (recorded by a hook that counts nothing)
+             is held against K1's plain version in complex128 on its own
+             chain and configs; then K2 against its plain version, as in
+             4, at every shape they launched that no earlier phase did.
+             Then K2's group variant (m > 320) timed as in 8 (one plain
+             call and 10 kernel calls a turn): c64 m = 384
              at 11 sweeps, c64 m = 512 at 6, 7 and 11, f32 m = 512 at 7,
              and every shape of it any phase launched, with the launches
              of every phase ("group" in K2's line).
@@ -221,6 +233,7 @@ QFT_ENCODE = dict(method="rsvd", k=50, p=5, q=2)
 QFT_BARS = {28: 0.1, 16: 8e-3}  # max_err_rel_peak bars (see the docstring)
 GATE_CUTOFF = 1e-9  # the reference's zt_full_runtime cutoff: range-mode zips
 POLE_BITS = 20       # the reference tutorial's flagship pole search
+FOLD_SLOT_TOL = 1e-5  # a batched fold's slot vs its stack alone, rel to peak
 POLE_LAM, POLE_W = 1.6e-4, 4.08e-3  # its signal e^{-lam j} sin(w j)
 DT_BITS, DT_CHI, DT_BAR = 20, 64, 0.1
 GRID = 64            # the n=30 gate read: a GRID x GRID chi_grid
@@ -1079,14 +1092,67 @@ def read_counts():
 
 
 def log_counts(tag, counts):
-    top = sorted(counts["k2_by_shape"].items(), key=lambda kv: -kv[1])
-    by_shape = ", ".join(f"({kind} m={m}, B={B}, sweeps={sw}): {c}"
-                         for (m, B, kind, sw), c in top)
     log(f"[{tag}] launches K1 {counts['k1']} K2 {counts['k2']} "
-        f"[{by_shape}]; plain Jacobi calls on the card "
-        f"{counts['plain_cuda']}")
+        f"[{fmt_shapes(counts['k2_by_shape'])}]; plain Jacobi calls on the "
+        f"card {counts['plain_cuda']}")
     check(counts["plain_cuda"] == 0,
           f"{tag}: the plain Jacobi solver ran on the card")
+
+
+def fmt_shapes(by_shape):
+    """K2 launches by (dtype, m, B, sweeps), most launched first."""
+    return ", ".join(f"({kind} m={m}, B={B}, sweeps={sw}): {c}"
+                     for (m, B, kind, sw), c in sorted(
+                         by_shape.items(), key=lambda kv: (-kv[1], kv[0])))
+
+
+# the gate builds and encoders whose every call logs its own K2 launches
+# in the gate and tutorial phases
+LOGGED_CALLS = ("signal_ztmps", "signal_mps", "build_zt_mpo",
+                "_build_factors_concurrent", "_fuse_factors", "build_dt_mpo",
+                "build_paired_qft_mpo")
+
+
+@contextlib.contextmanager
+def k2_by_call(tag):
+    """Within the block, every call of LOGGED_CALLS (wherever a module of
+    the port holds it) logs the K2 launches it made, by (m, B, dtype,
+    sweeps), as the difference of the wrapper's count over the call; a
+    nested call logs its own line first. The counts themselves move only
+    where the wrapper launches."""
+    from qilaplace_tpu_torch.ops.jacobi_kernels import jacobi_eigh_k2
+
+    def logged(name, fn):
+        def call(*args, **kwargs):
+            before = collections.Counter(jacobi_eigh_k2.by_shape)
+            out = fn(*args, **kwargs)
+            made = jacobi_eigh_k2.by_shape - before
+            first = args[0] if args else None
+            what = (f"n={first}" if isinstance(first, int) else
+                    f"x {tuple(first.shape)}" if torch.is_tensor(first)
+                    else "")
+            log(f"[{tag}] {name}({what}): K2 {sum(made.values())} "
+                f"[{fmt_shapes(made)}]")
+            return out
+        return call
+
+    patched = []
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("qilaplace_tpu_torch")]
+    for name in LOGGED_CALLS:
+        real = {id(getattr(m, name)): getattr(m, name) for m in mods
+                if callable(getattr(m, name, None))}
+        for fn in real.values():
+            wrapped = logged(name, fn)
+            for m in mods:
+                if getattr(m, name, None) is fn:
+                    patched.append((m, name, fn))
+                    setattr(m, name, wrapped)
+    try:
+        yield
+    finally:
+        for m, name, fn in patched:
+            setattr(m, name, fn)
 
 
 def grid_read(state, ks, ls):
@@ -1154,14 +1220,16 @@ def phase_gate_pole(dev):
         return (torch.exp(-POLE_LAM * j) * torch.sin(POLE_W * j)).float()
 
     reset_counts()
-    x, _ = synced(signal)
-    psi, t_enc = synced(lambda: qt.signal_ztmps(x, cutoff=1e-12, maxdim=CHI,
-                                                device=dev))
-    del x
-    pipe = qt.ZTPipeline(n, chi=CHI, build_cutoff=GATE_CUTOFF, engine="gate",
-                         readout="apply", cache=False, device=dev)
-    res, t_search = synced(lambda: pipe.find_poles(
-        psi, coarse_points=128, fine_points=128, superfine_half=24))
+    with k2_by_call("gate-pole"):
+        x, _ = synced(signal)
+        psi, t_enc = synced(lambda: qt.signal_ztmps(
+            x, cutoff=1e-12, maxdim=CHI, device=dev))
+        del x
+        pipe = qt.ZTPipeline(n, chi=CHI, build_cutoff=GATE_CUTOFF,
+                             engine="gate", readout="apply", cache=False,
+                             device=dev)
+        res, t_search = synced(lambda: pipe.find_poles(
+            psi, coarse_points=128, fine_points=128, superfine_half=24))
     counts = read_counts()
     z = complex(res.z_pole)
     poles = [complex(math.exp(-POLE_LAM) * complex(math.cos(POLE_W),
@@ -1254,19 +1322,21 @@ def phase_gate_n30(dev):
     n = N_BITS
     reset_counts()
     x, t_sig = synced(lambda: sin_decay_on_card(n, dev))
-    psi, t_enc = synced(lambda: qt.signal_ztmps(
-        x, method="rsvd", k=50, p=5, q=2, cutoff=GATE_CUTOFF, maxdim=CHI,
-        device=dev))
-    del x
-    torch.cuda.empty_cache()
-    # build_zt_mpo(n, WR, cutoff=GATE_CUTOFF, maxdim=CHI, chi=CHI,
-    # dtype=complex64): both factors at the default bucket, folded
-    # together, then fused
-    (W_dt, W_qft), t_fold = synced(lambda: zt_mod._build_factors_concurrent(
-        n, WR, cutoff=GATE_CUTOFF, maxdim=CHI, chi_f=bucket_for(32),
-        dtype=torch.complex64, chi_work_f=None, device=dev))
-    W, t_fuse = synced(lambda: zt_mod._fuse_factors(
-        W_dt, W_qft, chi=CHI, cutoff=GATE_CUTOFF, maxdim=CHI))
+    with k2_by_call("gate-n30"):
+        psi, t_enc = synced(lambda: qt.signal_ztmps(
+            x, method="rsvd", k=50, p=5, q=2, cutoff=GATE_CUTOFF,
+            maxdim=CHI, device=dev))
+        del x
+        torch.cuda.empty_cache()
+        # build_zt_mpo(n, WR, cutoff=GATE_CUTOFF, maxdim=CHI, chi=CHI,
+        # dtype=complex64): both factors at the default bucket, folded
+        # together as one batched program, then fused
+        (W_dt, W_qft), t_fold = synced(
+            lambda: zt_mod._build_factors_concurrent(
+                n, WR, cutoff=GATE_CUTOFF, maxdim=CHI, chi_f=bucket_for(32),
+                dtype=torch.complex64, chi_work_f=None, device=dev))
+        W, t_fuse = synced(lambda: zt_mod._fuse_factors(
+            W_dt, W_qft, chi=CHI, cutoff=GATE_CUTOFF, maxdim=CHI))
     del W_dt, W_qft
     out, t_apply = synced(lambda: qt.apply(W, psi, maxdim=CHI,
                                            cutoff=GATE_CUTOFF))
@@ -1304,6 +1374,87 @@ def phase_gate_n30(dev):
     check(k1_rel <= K1_TOL, "K1 disagrees with its plain version on the "
           "n=30 gate product chain")
     return counts, (chain, cfg)
+
+
+def phase_fold_slots(dev, n=POLE_BITS):
+    """The batched factor fold against its stacks folded alone: the n=20
+    gate build's fold (wr = 2 pi, cutoff 1e-9, factor bucket 32, complex64;
+    Part 1, Part 2 and the paired-QFT stack as one compose_layers call on
+    the inputs zt._factor_stacks gives), then each stack folded alone
+    through the unbatched compose_layers on the same inputs. The batched
+    fold must launch K2 as often as one stack alone, every launch with
+    B = the stack count, and neither may run the plain Jacobi solver on
+    the card. Every slot must have its stack's bonds and cores within
+    FOLD_SLOT_TOL of the largest entry: K2 gives each slot what it gives
+    the matrix alone, and the fold's products, sums and scans run a slot
+    at a time on the card (complexlinalg.per_slot), so the slots are
+    bit-identical to their stacks (logged). Then K2 at each of the fold's
+    shapes on distinct matrices, one a slot, against each matrix launched
+    alone: bit-identical. Both folds are timed (host clock,
+    synchronised)."""
+    from qilaplace_tpu_torch.core.mpo import MPO
+    from qilaplace_tpu_torch.ops import jacobi_kernels as jk
+    from qilaplace_tpu_torch.ops.apply import compose_layers
+    from qilaplace_tpu_torch.transforms.zt import _factor_stacks
+    from qilaplace_tpu_torch.utils.config import bucket_for
+
+    acc, lay_c, lay_r, kw = _factor_stacks(
+        n, WR, cutoff=GATE_CUTOFF, maxdim=CHI, chi_f=bucket_for(32),
+        dtype=torch.complex64, chi_work_f=None, device=dev)
+    S = lay_c.shape[0]
+    reset_counts()
+    out, t_batch = synced(lambda: compose_layers(acc, lay_c, lay_r, **kw))
+    counts = read_counts()
+    log_counts(f"fold-slots n={n}, {S} stacks batched", counts)
+    check(counts["plain_cuda"] == 0, "the batched fold ran the plain Jacobi "
+          "solver on the card")
+    check(counts["k2"] > 0 and {B for _, B, _, _ in counts["k2_by_shape"]}
+          == {S}, f"the batched fold's K2 launches are not all at B = {S}")
+    t_alone, worst, identical = 0.0, 0.0, True
+    for s in range(S):
+        reset_counts()
+        ref, secs = synced(lambda: compose_layers(
+            MPO(cores=acc.cores[s], ranks=acc.ranks[s]), lay_c[s], lay_r[s],
+            **kw))
+        alone = read_counts()
+        t_alone += secs
+        gap = float((out.cores[s] - ref.cores).abs().max()
+                    / ref.cores.abs().max())
+        same = bool(torch.equal(out.cores[s], ref.cores))
+        worst, identical = max(worst, gap), identical and same
+        log(f"[fold-slots] slot {s}: bonds {out.ranks[s].tolist()}, alone "
+            f"{ref.ranks.tolist()}; cores {gap:.3e} of the largest entry "
+            f"apart (tol {FOLD_SLOT_TOL:g}), bit-identical {same}; alone "
+            f"{secs:.4f} s, K2 {alone['k2']}")
+        check(alone["plain_cuda"] == 0, "a stack folded alone ran the plain "
+              "Jacobi solver on the card")
+        check(alone["k2"] == counts["k2"], f"stack {s} alone launched K2 "
+              f"{alone['k2']} times, the batched fold {counts['k2']}")
+        check(out.ranks[s].tolist() == ref.ranks.tolist(),
+              f"slot {s} of the batched fold has other bonds than its stack")
+        check(gap <= FOLD_SLOT_TOL, f"slot {s} of the batched fold is "
+              f"{gap:.3e} from its stack folded alone (tol {FOLD_SLOT_TOL:g})")
+    log(f"[fold-slots] n={n}: the batched fold {t_batch:.4f} s ({counts['k2']}"
+        f" K2 launches at B = {S}) against {t_alone:.4f} s for the {S} "
+        f"stacks folded one after the other ({S * counts['k2']} at B = 1)")
+    rng = np.random.default_rng(2030)
+    for m, B, kind, sweeps in sorted(counts["k2_by_shape"]):
+        H = torch.from_numpy(hermitian(rng, B, m, complex_=kind == "c64")
+                             ).to(dev)
+        lam, V = jk.jacobi_eigh_k2(H, sweeps=sweeps)
+        alone = [jk.jacobi_eigh_k2(H[b:b + 1], sweeps=sweeps)
+                 for b in range(B)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(lam[b], a[0][0]) and torch.equal(V[b], a[1][0])
+                   for b, a in enumerate(alone))
+        log(f"[fold-slots] K2 {kind} m={m} B={B} sweeps={sweeps}, distinct "
+            f"slots: every slot equal to its matrix alone: {same}")
+        check(same, f"K2 {kind} m={m} B={B}: a slot differs from its matrix "
+              "alone")
+    return dict(stacks=S, batched_s=t_batch, alone_s=t_alone,
+                launches_batched=counts["k2"], launches_alone=S * counts["k2"],
+                max_core_gap=worst, tol=FOLD_SLOT_TOL,
+                bit_identical=identical)
 
 
 # ------------------------------ batched path --------------------------------
@@ -1526,17 +1677,25 @@ def phase_entries(dev):
 def phase_gate_trace(dev, n=POLE_BITS):
     """One n=20 gate build (wr = 2 pi, cutoff 1e-9, chi 128) under
     torch.profiler: K2's device time, all kernels and the card's busy
-    share. Device activity only: the build runs about 100 host ops a
-    launch, and recording them too makes the trace's processing take
-    minutes."""
+    share, and the K2 launches of each of its calls by shape. Device
+    activity only: the build runs about 100 host ops a launch, and
+    recording them too makes the trace's processing take minutes. Returns
+    the wall time, the K2 launches and the busy share."""
     import qilaplace_tpu_torch as qt
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            k2_by_call("gate-trace"):
         _, wall = synced(lambda: qt.build_zt_mpo(
             n, WR, cutoff=GATE_CUTOFF, maxdim=CHI, chi=CHI,
             dtype=torch.complex64, device=dev))
-    log_trace(f"n={n} gate build", wall, device_busy(prof, wall))
+    counts = read_counts()
+    log_counts("gate-trace", counts)
+    busy = device_busy(prof, wall)
+    log_trace(f"n={n} gate build", wall, busy)
+    return dict(wall_s=wall, k2=counts["k2"],
+                busy=None if busy is None else busy[3])
 
 
 def device_busy(prof, wall_s):
@@ -1644,7 +1803,7 @@ def phase_tutorials(dev):
     out = {}
     for name in TUTORIALS:
         tutorial = importlib.import_module(f"qilaplace_tpu_torch.tutorials.{name}")
-        with k1_recorded() as k1_calls:
+        with k1_recorded() as k1_calls, k2_by_call(f"tutorial {name}"):
             reset_counts()
             _, wall = synced(lambda: tutorial.run(device=dev,
                                                   dtype=torch.complex64))
@@ -1730,6 +1889,7 @@ def main():
     pole_counts = phase_gate_pole(dev)
     dt_counts = phase_dt(dev)
     n30_counts, n30_read = phase_gate_n30(dev)
+    fold_slots = phase_fold_slots(dev)
     gate = [pole_counts, dt_counts, n30_counts]
     gate_shapes = {}
     for c in gate:
@@ -1783,7 +1943,7 @@ def main():
     mark("timing")
     phase_trace(dev)
     mark("QFT trace")
-    phase_gate_trace(dev)
+    gate_trace = phase_gate_trace(dev)
     mark("gate trace")
 
     # the tutorials: each sets the counts to 0 just before it
@@ -1856,7 +2016,10 @@ def main():
         "qft_max_err_rel_peak": qft_err,
         "launches_gate": {"pole_n20": pole_counts["k2"],
                           "dt_n20": dt_counts["k2"],
-                          "zt_n30": n30_counts["k2"]},
+                          "zt_n30": n30_counts["k2"],
+                          "build_n20_traced": gate_trace["k2"]},
+        "gate_build_n20_traced": gate_trace,
+        "fold_slots_n20": fold_slots,
         "gate_shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
                                            "library_ms", "bound_ms",
                                            "bound_by")}

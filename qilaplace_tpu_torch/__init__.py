@@ -118,6 +118,8 @@ from qilaplace_tpu_torch.transforms.zt import (  # noqa: E402
 )
 from qilaplace_tpu_torch.utils.io import load, save  # noqa: E402
 
+__version__ = "0.1.0"
+
 __all__ = [
     # the names of qilaplace_tpu.__all__, in its order
     "MPS", "SignalMPS", "ZTMPS", "nsite", "validate", "coefficient",

@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from qilaplace_tpu_torch.ops.complexlinalg import slot_einsum
 from qilaplace_tpu_torch.ops.truncation import svd_split
 from qilaplace_tpu_torch.utils.config import (
     bucket_for,
@@ -480,7 +481,8 @@ def _two_site_sweep(cores, ranks, *, cutoff, maxdim, reverse: bool):
     if not reverse:
         left = site(0)
         for i in range(1, n):
-            T = torch.einsum("...lsa,...atr->...lstr", left, site(i))
+            T = slot_einsum("...lsa,...atr->...lstr", left, site(i),
+                            core=3)
             L, R, rank = svd_split(T.reshape(*lead, chi * p, p * chi),
                                    cutoff=cutoff, maxdim=maxdim,
                                    absorb="right", out_dim=chi)
@@ -491,7 +493,8 @@ def _two_site_sweep(cores, ranks, *, cutoff, maxdim, reverse: bool):
     else:
         right = site(n - 1)
         for i in range(n - 2, -1, -1):
-            T = torch.einsum("...lsa,...atr->...lstr", site(i), right)
+            T = slot_einsum("...lsa,...atr->...lstr", site(i), right,
+                            core=3)
             L, R, rank = svd_split(T.reshape(*lead, chi * p, p * chi),
                                    cutoff=cutoff, maxdim=maxdim,
                                    absorb="left", out_dim=chi)

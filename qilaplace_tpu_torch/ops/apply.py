@@ -20,8 +20,10 @@ its eigensolves is a launch of kernel K2.
 ``apply`` also takes a batch of states (every field with the batch axis
 first, core/mps.py) under one shared operator, and
 ``apply_coefficient_batch`` a stack of operators (``parallel.stack_mpos``)
-over one shared state: the batch is an axis of every contraction and of
-every factorization, so a batch costs the launches of one state.
+over one shared state, and ``compose_layers`` several layer stacks folded
+side by side (the zT build's factor stacks): the batch is an axis of every
+contraction and of every factorization, so a batch costs the launches of
+one state or one stack.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from qilaplace_tpu_torch.core.mps import (
     _sweep_right,
     _two_site_sweep,
 )
+from qilaplace_tpu_torch.ops.complexlinalg import slot_einsum
 from qilaplace_tpu_torch.ops.truncation import (
     _is_fast,
     range_split,
@@ -105,8 +108,8 @@ def _apply_fused(W: MPO, psi: MPS, *, maxdim: int, cutoff: float,
         om = sketch_matrix(1234, chiW * chiS, chi_work, dtype, device=device)
     cores, bond_ranks = [], []
     for i in range(n - 1):
-        T = torch.einsum("...xab,aoic,...bid->...xocd", C, Wc[i],
-                         Ac.select(-4, i))
+        T = slot_einsum("...xab,aoic,...bid->...xocd", C, Wc[i],
+                        Ac.select(-4, i), core=(3, 4, 3))
         M = T.reshape(*lead, chi_work * 2, chiW * chiS)
         if zip_mode == "range":
             L, R, rank = range_split(M, om)
@@ -119,8 +122,8 @@ def _apply_fused(W: MPO, psi: MPS, *, maxdim: int, cutoff: float,
         bond_ranks.append(rank)
         C = R.reshape(*lead, chi_work, chiW, chiS)
     # last site: contract the remainder; the right boundary is index 0
-    last = torch.einsum("...xab,aoic,...bid->...xocd", C, Wc[n - 1],
-                        Ac.select(-4, n - 1))[..., 0, 0]
+    last = slot_einsum("...xab,aoic,...bid->...xocd", C, Wc[n - 1],
+                       Ac.select(-4, n - 1), core=(3, 4, 3))[..., 0, 0]
     last_core = last.new_zeros(*lead, chi_work, 2, chi_work)
     last_core[..., 0] = last
     cores.append(last_core)
@@ -183,8 +186,15 @@ def _compose_fused(A: MPO, B: MPO, *, chi_out: int, zip_maxdim: int,
     (default 2 chi_out, capped by the product bond) is the bucket of both
     stages; the final truncating sweep leaves ranks <= maxdim <= chi_out in
     the leading block, so the closing slice is exact.
+
+    A and B may carry the same leading batch axes (cores [..., n, chi, 2,
+    2, chi], ranks [..., n+1]), as ``jax.vmap`` of the JAX package's
+    composition gives them: each slot has its own carry and ranks, every
+    split takes the whole batch, and the range-mode sketch is one matrix
+    shared by every slot.
     """
     n, chiA, chiB = A.n, A.chi, B.chi
+    lead = torch.broadcast_shapes(A.cores.shape[:-5], B.cores.shape[:-5])
     dtype = torch.promote_types(A.dtype, B.dtype)
     device = A.device
     if chi_work is None:
@@ -196,13 +206,15 @@ def _compose_fused(A: MPO, B: MPO, *, chi_out: int, zip_maxdim: int,
 
     # the zip runs at cutoff 0 but inherits the polish's profile
     fast = _is_fast(cutoff)
-    C = _unit_carry(chi_work, chiB, chiA, dtype, device)
+    C = _unit_carry(chi_work, chiB, chiA, dtype, device).expand(
+        *lead, chi_work, chiB, chiA)
     if zip_mode == "range":
         om = sketch_matrix(1234, chiB * chiA, chi_work, dtype, device=device)
     cores4, bond_ranks = [], []
     for i in range(n - 1):
-        T = torch.einsum("xba,botc,atid->xoicd", C, Bc[i], Ac[i])
-        M = T.reshape(chi_work * 4, chiB * chiA)
+        T = slot_einsum("...xba,...botc,...atid->...xoicd", C,
+                        Bc.select(-5, i), Ac.select(-5, i), core=(3, 4, 4))
+        M = T.reshape(*lead, chi_work * 4, chiB * chiA)
         if zip_mode == "range":
             L, R, rank = range_split(M, om)
             rank = torch.clamp(rank, max=zip_maxdim)
@@ -210,17 +222,19 @@ def _compose_fused(A: MPO, B: MPO, *, chi_out: int, zip_maxdim: int,
             L, R, rank = svd_split(M, cutoff=0.0, maxdim=zip_maxdim,
                                    absorb="right", out_dim=chi_work,
                                    fast=fast or None)
-        cores4.append(L.reshape(chi_work, 4, chi_work))
+        cores4.append(L.reshape(*lead, chi_work, 4, chi_work))
         bond_ranks.append(rank)
-        C = R.reshape(chi_work, chiB, chiA)
-    last = torch.einsum("xba,botc,atid->xoicd", C, Bc[n - 1], Ac[n - 1])
-    last_core = last.new_zeros(chi_work, 4, chi_work)
-    last_core[:, :, 0] = last[:, :, :, 0, 0].reshape(chi_work, 4)
+        C = R.reshape(*lead, chi_work, chiB, chiA)
+    last = slot_einsum("...xba,...botc,...atid->...xoicd", C,
+                       Bc.select(-5, n - 1), Ac.select(-5, n - 1),
+                       core=(3, 4, 4))
+    last_core = last.new_zeros(*lead, chi_work, 4, chi_work)
+    last_core[..., 0] = last[..., 0, 0].reshape(*lead, chi_work, 4)
     cores4.append(last_core)
-    cores4 = torch.stack(cores4)
-    ranks = torch.ones(n + 1, dtype=torch.int32, device=device)
+    cores4 = torch.stack(cores4, dim=-4)
+    ranks = torch.ones(*lead, n + 1, dtype=torch.int32, device=device)
     if n > 1:
-        ranks[1:n] = torch.stack(bond_ranks)
+        ranks[..., 1:n] = torch.stack(bond_ranks, dim=-1)
 
     for _ in range(final_sweeps):
         cores4, ranks = _two_site_sweep(cores4, ranks, cutoff=cutoff,
@@ -229,9 +243,9 @@ def _compose_fused(A: MPO, B: MPO, *, chi_out: int, zip_maxdim: int,
             cores4, ranks = _two_site_sweep(cores4, ranks, cutoff=cutoff,
                                             maxdim=maxdim, reverse=False)
     if chi_work > chi_out:
-        cores4 = cores4[:, :chi_out, :, :chi_out]
-    return MPO(cores=cores4.reshape(n, chi_out, 2, 2, chi_out).contiguous(),
-               ranks=ranks)
+        cores4 = cores4[..., :chi_out, :, :chi_out]
+    return MPO(cores=cores4.reshape(*lead, n, chi_out, 2, 2, chi_out)
+               .contiguous(), ranks=ranks)
 
 
 def compose_layers(acc: MPO, layer_cores: torch.Tensor,
@@ -242,16 +256,22 @@ def compose_layers(acc: MPO, layer_cores: torch.Tensor,
     after layer_1 after acc, each step the fused zip-up composition and
     polish at acc's bucket.
 
-    layer_cores: [L, n, cl, 2, 2, cl]; layer_ranks: [L, n+1].
+    layer_cores: [..., L, n, cl, 2, 2, cl]; layer_ranks: [..., L, n+1].
+    Leading axes fold that many stacks at once, each into its own slot of
+    ``acc`` (which carries the same axes): every eigensolve of the fold is
+    one call for all of them, as the JAX package's ``jax.vmap`` of its
+    fold is one ``pallas_call`` for all.
     """
     chi = acc.chi
-    chi_layer = layer_cores.shape[2]
+    chi_layer = layer_cores.shape[-1]
     if chi_work is None:
         chi_work = min(2 * chi, chi * chi_layer)
     cores, ranks = acc.cores, acc.ranks
-    for lc, lr in zip(layer_cores, layer_ranks):
+    for l in range(layer_cores.shape[-6]):
         out = _compose_fused(
-            MPO(cores=cores, ranks=ranks), MPO(cores=lc, ranks=lr),
+            MPO(cores=cores, ranks=ranks),
+            MPO(cores=layer_cores.select(-6, l),
+                ranks=layer_ranks.select(-2, l)),
             chi_out=chi, zip_maxdim=chi_work, cutoff=cutoff, maxdim=maxdim,
             final_sweeps=final_sweeps, chi_work=chi_work, polish=polish,
             zip_mode=zip_mode,

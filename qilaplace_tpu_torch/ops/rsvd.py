@@ -23,6 +23,7 @@ from qilaplace_tpu_torch.ops.complexlinalg import (
     _native_complex_linalg,
     csvd,
     gram_orthonormalize,
+    mm,
 )
 from qilaplace_tpu_torch.ops.jacobi import fast_sweeps
 from qilaplace_tpu_torch.ops.truncation import (
@@ -72,13 +73,13 @@ def rsvd(M: torch.Tensor, key, *, k: int = 20, p: int = 10, q: int = 0,
     if shared:
         Om = Om[0]
 
-    Y = M @ Om  # [..., a, l]: the big GEMM
+    Y = mm(M, Om)  # [..., a, l]: the big GEMM
     Q, _ = gram_orthonormalize(Y, sweeps=sweeps)
     for _ in range(q):
-        Qz, _ = gram_orthonormalize(M.mH @ Q, sweeps=sweeps)
-        Q, _ = gram_orthonormalize(M @ Qz, sweeps=sweeps)
+        Qz, _ = gram_orthonormalize(mm(M.mH, Q), sweeps=sweeps)
+        Q, _ = gram_orthonormalize(mm(M, Qz), sweeps=sweeps)
 
-    B = Q.mH @ M  # [..., l, b]
+    B = mm(Q.mH, M)  # [..., l, b]
     if _native_complex_linalg(B):
         Ub, s, Vh = csvd(B)
     else:
@@ -87,6 +88,6 @@ def rsvd(M: torch.Tensor, key, *, k: int = 20, p: int = 10, q: int = 0,
     nf = 2.0 * torch.finfo(M.real.dtype).eps * float(max(a, b)) ** 0.5
     rank = truncation_rank(s, cutoff, maxdim, mindim, noise_floor=nf)
     Ub, s, Vh = _mask(Ub, s, Vh, rank)
-    U = Q @ Ub
+    U = mm(Q, Ub)
     return (_fit(U, -1, out_dim), _fit(s, -1, out_dim),
             _fit(Vh, -2, out_dim), rank)

@@ -32,6 +32,8 @@ from qilaplace_tpu_torch.ops.complexlinalg import (
     _native_complex_linalg,
     csvd,
     gram_orthonormalize,
+    mm,
+    per_slot,
 )
 from qilaplace_tpu_torch.ops.jacobi import fast_sweeps, onesided_polish
 from qilaplace_tpu_torch.utils.config import real_dtype, resolve_device
@@ -64,7 +66,7 @@ def truncation_rank(s: torch.Tensor, cutoff, maxdim, mindim=1, *,
     p = s * s
     k = s.shape[-1]
     # exact suffix sums: tail[i] = sum_{j > i} p_j
-    suffix = p.flip(-1).cumsum(-1).flip(-1)
+    suffix = per_slot(lambda q: q.flip(-1).cumsum(-1).flip(-1), p, core=1)
     captured = suffix[..., 0]
     total = captured if total is None else torch.maximum(total, captured)
     missing = total - captured
@@ -115,33 +117,33 @@ def _gram_svd(M: torch.Tensor, sweeps: int | None = None,
     eps = torch.finfo(M.real.dtype).eps
     tiny = torch.finfo(M.real.dtype).tiny
     if a <= b:
-        _, U = _device_eigh(M @ M.mH, sweeps=sweeps)
-        B = U.mH @ M
+        _, U = _device_eigh(mm(M, M.mH), sweeps=sweeps)
+        B = mm(U.mH, M)
         if polish:
-            _, V2 = _device_eigh(B @ B.mH, sweeps=polish)
-            U = U @ V2
-            B = V2.mH @ B
+            _, V2 = _device_eigh(mm(B, B.mH), sweeps=polish)
+            U = mm(U, V2)
+            B = mm(V2.mH, B)
         if os_sweeps:
             J, B = onesided_polish(B, sweeps=os_sweeps)
-            U = U @ J
-        s = torch.linalg.vector_norm(B, dim=-1)
+            U = mm(U, J)
+        s = per_slot(lambda b: torch.linalg.vector_norm(b, dim=-1), B)
         s, U, B = _sort_desc(s, U, B, y_rows=True)
         smax = torch.clamp(s[..., :1], min=tiny)
         keep = s > 4.0 * eps * smax
         inv = torch.where(keep, 1.0 / torch.where(keep, s, 1.0),
                           torch.zeros_like(s))
         return U, s, B * inv[..., :, None].to(M.dtype)
-    _, V = _device_eigh(M.mH @ M, sweeps=sweeps)
-    B = M @ V
+    _, V = _device_eigh(mm(M.mH, M), sweeps=sweeps)
+    B = mm(M, V)
     if polish:
-        _, W2 = _device_eigh(B.mH @ B, sweeps=polish)
-        V = V @ W2
-        B = B @ W2
+        _, W2 = _device_eigh(mm(B.mH, B), sweeps=polish)
+        V = mm(V, W2)
+        B = mm(B, W2)
     if os_sweeps:
         J, Bt = onesided_polish(B.mH, sweeps=os_sweeps)
-        V = V @ J
+        V = mm(V, J)
         B = Bt.mH
-    s = torch.linalg.vector_norm(B, dim=-2)
+    s = per_slot(lambda b: torch.linalg.vector_norm(b, dim=-2), B)
     s, V, B = _sort_desc(s, V, B, y_rows=False)
     smax = torch.clamp(s[..., :1], min=tiny)
     keep = s > 4.0 * eps * smax
@@ -183,14 +185,16 @@ def _sketched_svd(M: torch.Tensor, l: int, power_iters: int,
     # 8 eps relative-lambda mask floor (see range_split); three
     # Newton-Schulz passes absorb the larger whitening defect
     eps8 = 8.0 * torch.finfo(M.real.dtype).eps / l
-    Q, _ = gram_orthonormalize(M @ Om, eps=eps8, sweeps=sweeps, ns_steps=3)
+    Q, _ = gram_orthonormalize(mm(M, Om), eps=eps8, sweeps=sweeps,
+                               ns_steps=3)
     for _ in range(power_iters):
-        Q, _ = gram_orthonormalize(M.mH @ Q, eps=eps8, sweeps=sweeps,
+        Q, _ = gram_orthonormalize(mm(M.mH, Q), eps=eps8, sweeps=sweeps,
                                    ns_steps=3)
-        Q, _ = gram_orthonormalize(M @ Q, eps=eps8, sweeps=sweeps, ns_steps=3)
-    B = Q.mH @ M  # [l, b]
+        Q, _ = gram_orthonormalize(mm(M, Q), eps=eps8, sweeps=sweeps,
+                                   ns_steps=3)
+    B = mm(Q.mH, M)  # [l, b]
     Ub, s, Vh = _gram_svd(B, sweeps=sweeps, polish=polish)
-    U = Q @ Ub
+    U = mm(Q, Ub)
     if transpose:
         return Vh.mH, s, U.mH
     return U, s, Vh
@@ -262,7 +266,8 @@ def truncated_svd(M: torch.Tensor, *, cutoff=0.0, maxdim=None, mindim=1,
             U, s, Vh = _sketched_svd(M, l, power_iters, sweeps=sweeps,
                                      polish=polish)
             # ||M||_F^2 of each matrix of a batch, never of the batch
-            total = (M.abs() ** 2).sum(dim=(-2, -1)).to(s.dtype)
+            total = per_slot(lambda m: (m.abs() ** 2).sum(dim=(-2, -1)),
+                             M).to(s.dtype)
             rank = truncation_rank(s, cutoff, maxdim, mindim, total=total,
                                    noise_floor=nf)
     U, s, Vh = _mask(U, s, Vh, rank)
@@ -325,12 +330,12 @@ def range_split(M: torch.Tensor, om: torch.Tensor, *,
     l = om.shape[1]
     if sweeps is None:
         sweeps = max(3, fast_sweeps(l) - 1)
-    Y = M @ om.to(M.dtype)
+    Y = mm(M, om.to(M.dtype))
     # mask floor at 8 eps in relative lambda (not eps l): the zip must keep
     # directions down to the truncation amplitude ~sqrt(cutoff)
     eps8 = 8.0 * torch.finfo(M.real.dtype).eps / l
     Q, rank = gram_orthonormalize(Y, eps=eps8, sweeps=sweeps, ns_steps=3)
-    return Q, Q.mH @ M, rank
+    return Q, mm(Q.mH, M), rank
 
 
 def sketch_matrix(seed: int, b: int, l: int, dtype, *, device=None):

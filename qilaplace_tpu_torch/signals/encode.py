@@ -11,7 +11,7 @@ Counterpart of ``qilaplace_tpu/signals/encode.py``:
   JAX package's ``vmap``), so each eigensolve of a level is one K2 launch;
 * ``method='cross'``: the host-f64 cross encoder (signals/cross_encode.py);
 * ``signal_ztmps``: per-site fan-out |s> -> |s_main>|s_copy> and an SVD
-  split.
+  split, the n sites' splits as one batched call.
 
 Encoders keep the input's dtype: real signals encode in float32/float64
 and the complex transform operators upcast on contact. The signal is moved
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from qilaplace_tpu_torch.core.mps import MPS, ZTMPS
+from qilaplace_tpu_torch.ops.complexlinalg import per_slot
 from qilaplace_tpu_torch.ops.rsvd import rsvd
 from qilaplace_tpu_torch.ops.truncation import svd_split
 from qilaplace_tpu_torch.utils.config import bucket_for, resolve_device
@@ -60,7 +61,8 @@ def _prepare(x, device):
             f"to {2**n}. Power-of-2 lengths are recommended."
         )
         x = torch.cat([x, x.new_zeros(*x.shape[:-1], 2**n - N)], dim=-1)
-    amplitude = torch.linalg.vector_norm(x, dim=-1)
+    amplitude = per_slot(lambda v: torch.linalg.vector_norm(v, dim=-1), x,
+                         core=1)
     safe = torch.where(amplitude == 0, torch.ones_like(amplitude), amplitude)
     return x / safe[..., None], amplitude, n
 
@@ -206,8 +208,8 @@ def signal_ztmps(x, *, cutoff: float = 1e-10, maxdim: int = 2**62,
 
     Builds the SignalMPS, then fans out each physical leg onto a
     (main, copy) pair through the copy tensor delta(s, s_main, s_copy) and
-    splits it with a truncated SVD, site by site. ``method='cross'`` routes
-    to the host-f64 cross encoder."""
+    splits it with a truncated SVD, every site in one batched call.
+    ``method='cross'`` routes to the host-f64 cross encoder."""
     device = resolve_device(device)
     if method == "cross":
         from qilaplace_tpu_torch.signals.cross_encode import signal_ztmps_cross
@@ -234,20 +236,17 @@ def signal_ztmps(x, *, cutoff: float = 1e-10, maxdim: int = 2**62,
     delta[1, 1, 1] = 1
     T = torch.einsum("nlsr,smc->nlmcr", cores_s, delta)
 
-    mains, copies, intra = [], [], []
-    for i in range(n):
-        M = T[i].reshape(chi_c * 2, 2 * chi_c)
-        L, R, rank = svd_split(M, cutoff=cutoff, maxdim=maxdim_eff,
-                               absorb="right", out_dim=chi_c)
-        mains.append(L.reshape(chi_c, 2, chi_c))
-        copies.append(R.reshape(chi_c, 2, chi_c))
-        intra.append(rank)
+    # every site's split in one call, the sites as its batch (jax.vmap of
+    # the split in the JAX package)
+    L, R, intra = svd_split(T.reshape(n, chi_c * 2, 2 * chi_c),
+                            cutoff=cutoff, maxdim=maxdim_eff,
+                            absorb="right", out_dim=chi_c)
     chain_cores = torch.stack(
-        [torch.stack(mains), torch.stack(copies)], dim=1
+        [L.reshape(n, chi_c, 2, chi_c), R.reshape(n, chi_c, 2, chi_c)], dim=1
     ).reshape(2 * n, chi_c, 2, chi_c)
     # chain ranks: [1, c_1, b_1, c_2, b_2, ..., c_n, 1]
     chain_ranks = torch.ones(2 * n + 1, dtype=torch.int32, device=device)
-    chain_ranks[1: 2 * n: 2] = torch.stack(intra)
+    chain_ranks[1: 2 * n: 2] = intra
     chain_ranks[2: 2 * n: 2] = psi.ranks[1:n]
     chain = MPS(cores=chain_cores, ranks=chain_ranks,
                 amplitude=psi.amplitude)

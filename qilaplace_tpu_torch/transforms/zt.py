@@ -10,10 +10,9 @@ Coefficients: chi(k, l) = (1/N) sum_j x_j e^{-(wr k + 2 pi i l) j / N},
 addressed on the output by interleaved LSB-first (k, l) bits. The bond
 plateaus near 89-92.
 
-The JAX package folds the factor stacks concurrently as one vmapped
-program; here the same stacks, padded with the same identity layers, are
-folded one after the other, so every stack computes what the vmapped fold
-computes.
+The factor stacks are folded side by side as one batched program, as the
+JAX package's ``jax.vmap`` folds them: each eigensolve of the fold is one
+call (one K2 launch on the card) with every stack in its batch.
 """
 
 from __future__ import annotations
@@ -88,11 +87,44 @@ def _pad_stack(layers, chi_l: int, L: int):
             torch.cat([ranks, ranks.new_ones(pad, n2 + 1)]))
 
 
+def _factor_stacks(n: int, wr: float, *, cutoff: float, maxdim: int,
+                   chi_f: int, dtype, chi_work_f: int | None, device):
+    """What ``_build_factors_concurrent`` folds: ``(acc, lay_c, lay_r,
+    fold_kw)``, with ``compose_layers(acc, lay_c, lay_r, **fold_kw)`` the
+    fold.
+
+    The stacks (Part 1, Part 2 and the paired QFT at loose cutoffs; the
+    whole DT stack and the paired QFT below) are padded to one bucket and
+    length and stacked: lay_c [S, L, 2n, cl, 2, 2, cl], lay_r
+    [S, L, 2n+1]; ``acc`` is the identity at the factor bucket, one slot
+    a stack."""
+    if cutoff >= RANGE_ZIP_CUTOFF:
+        stacks = [*dt_layers(n, wr, dtype, device),
+                  _qft_layers(n, dtype, device)]
+    else:
+        p1_layers, p2_layers = dt_layers(n, wr, dtype, device)
+        stacks = [p1_layers + p2_layers, _qft_layers(n, dtype, device)]
+    chi_l = max(l.chain.chi for st in stacks for l in st)
+    L = max(len(st) for st in stacks)
+    padded = [_pad_stack(st, chi_l, L) for st in stacks]
+    lay_c = torch.stack([c for c, _ in padded])
+    lay_r = torch.stack([r for _, r in padded])
+    eye = identity_mpo(n, chi=chi_f, dtype=dtype, paired=True,
+                       device=device).chain
+    S = len(stacks)
+    acc = MPO(cores=eye.cores.expand(S, *eye.cores.shape),
+              ranks=eye.ranks.expand(S, *eye.ranks.shape))
+    fold_kw = dict(cutoff=cutoff, maxdim=min(maxdim, chi_f),
+                   chi_work=chi_work_f, polish="reverse",
+                   zip_mode=zip_mode_for(cutoff))
+    return acc, lay_c, lay_r, fold_kw
+
+
 def _build_factors_concurrent(n: int, wr: float, *, cutoff: float,
                               maxdim: int, chi_f: int, dtype,
                               chi_work_f: int | None, device):
-    """Build the DT and paired-QFT zT factors from the JAX package's
-    factor stacks, returning ``(W_dt, W_qft)``.
+    """Build the DT and paired-QFT zT factors as one batched layer fold,
+    returning ``(W_dt, W_qft)``.
 
     The fold's latency is its sequential layer count. At loose cutoffs
     (>= 1e-10) the DT stack is split at its seam into Part 1 (n layers)
@@ -106,33 +138,19 @@ def _build_factors_concurrent(n: int, wr: float, *, cutoff: float,
     stack. The split changes the numbers against one sequential 2n-1
     fold, so it is kept exactly.
     """
-    maxdim_f = min(maxdim, chi_f)
-    loose = cutoff >= RANGE_ZIP_CUTOFF
-    zip_mode = zip_mode_for(cutoff)
-    p1_layers, p2_layers = dt_layers(n, wr, dtype, device)
-    qft_layers = _qft_layers(n, dtype, device)
-    if loose:
-        stacks = [p1_layers, p2_layers, qft_layers]
-    else:
-        stacks = [p1_layers + p2_layers, qft_layers]
-    chi_l = max(l.chain.chi for st in stacks for l in st)
-    L = max(len(st) for st in stacks)
-    acc = identity_mpo(n, chi=chi_f, dtype=dtype, paired=True,
-                       device=device).chain
-    folded = []
-    for st in stacks:
-        lay_c, lay_r = _pad_stack(st, chi_l, L)
-        folded.append(PairedSiteMPO(chain=compose_layers(
-            MPO(cores=acc.cores, ranks=acc.ranks), lay_c, lay_r,
-            cutoff=cutoff, maxdim=maxdim_f, chi_work=chi_work_f,
-            polish="reverse", zip_mode=zip_mode)))
-    if not loose:
+    acc, lay_c, lay_r, fold_kw = _factor_stacks(
+        n, wr, cutoff=cutoff, maxdim=maxdim, chi_f=chi_f, dtype=dtype,
+        chi_work_f=chi_work_f, device=device)
+    out = compose_layers(acc, lay_c, lay_r, **fold_kw)
+    folded = [PairedSiteMPO(chain=MPO(cores=out.cores[s], ranks=out.ranks[s]))
+              for s in range(lay_c.shape[0])]
+    if len(folded) == 2:
         return folded[0], folded[1]
     W_p1, W_p2, W_qft = folded
     W_dt = apply_mpo_mpo(W_p1, W_p2, chi_out=chi_f, cutoff=cutoff,
-                         maxdim=maxdim_f,
+                         maxdim=fold_kw["maxdim"],
                          chi_work=min(2 * chi_f, chi_f * chi_f),
-                         polish="reverse", zip_mode=zip_mode)
+                         polish="reverse", zip_mode=fold_kw["zip_mode"])
     return W_dt, W_qft
 
 

@@ -12,13 +12,16 @@ stage synchronised and timed on the host clock: the QFT path
 apply) and the gate path of the n=20 pole search (TT-SVD encode of its
 signal, zt_mpo(20, 2 pi, engine="gate", cutoff=1e-9, maxdim=128) in
 complex64, the zip-up apply at chi 128). One JSON line per process: the
-root, its stage times (the median run) and the K2 launches of one run. The
-card's name and power limit lead the output.
+root, its stage times (the median run), the K2 launches of one run and the
+first 16 hex digits of the SHA-256 of the gate operator's cores and ranks
+in every run (equal digests: bit-identical builds). The card's name and
+power limit lead the output.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -65,10 +68,14 @@ def worker(root: str, runs: int) -> None:
             maxdim=GATE_CHI, dtype=torch.complex64, cache=False, device=dev))
         _, t_gapply = synced(lambda: qt.apply(W, psi_g, maxdim=GATE_CHI,
                                               cutoff=CUTOFF))
+        digests.add(hashlib.sha256(
+            W.chain.cores.cpu().numpy().tobytes()
+            + W.chain.ranks.cpu().numpy().tobytes()).hexdigest()[:16])
         return dict(build_s=t_build, encode_s=t_enc, apply_s=t_apply,
                     gate_encode_s=t_genc, gate_build_s=t_gbuild,
                     gate_apply_s=t_gapply)
 
+    digests = set()
     one_run()  # warm-up: kernel builds, allocator
     jacobi_eigh_k2.launches = 0
     stages = [one_run()]
@@ -76,6 +83,7 @@ def worker(root: str, runs: int) -> None:
     stages += [one_run() for _ in range(runs - 1)]
     med = sorted(stages, key=lambda s: sum(s.values()))[len(stages) // 2]
     print(json.dumps(dict(root=root, runs=runs, k2_launches=launches,
+                          gate_build_sha256=sorted(digests),
                           **{k: float(np.float64(v)) for k, v in med.items()},
                           all_runs=stages)), flush=True)
 
