@@ -1,0 +1,6 @@
+"""portbench: the benchmark of qilaplace_tpu_torch on one NVIDIA card.
+
+``python3 portbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` once and prints one
+JSON result line. See ``portbench/README.md``.
+"""
