@@ -1,29 +1,20 @@
-"""Port tests: one torch thread, one BLAS thread per test, and the card
-fixture.
+"""Port tests: one torch thread, one BLAS and OpenMP thread per process, and
+the card fixture.
 
 The parent ``tests/conftest.py`` pins JAX to the CPU with x64, which is how
-the reference side of every comparison here runs."""
+the reference side of every comparison here runs. The thread policy of
+``thread_policy.py`` is applied here as well as in the root ``conftest.py``,
+because the card runs the port tests with ``--confcutdir=tests/port``, which
+loads neither parent."""
 
-import importlib.util
+from thread_policy import one_thread_per_pool
+
+one_thread_per_pool()
 
 import pytest
 import torch
 
 torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True)
-def _one_blas_thread():
-    """The host numpy code factorizes many small matrices, where a
-    multi-threaded BLAS only adds overhead (and oversubscribes the cores
-    under parallel test workers). Scoped to the port tests."""
-    if importlib.util.find_spec("threadpoolctl") is None:
-        yield
-        return
-    from threadpoolctl import threadpool_limits
-
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
 
 
 @pytest.fixture

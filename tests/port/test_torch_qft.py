@@ -3,15 +3,18 @@ closed form.
 
 * the gate layers and the gate-built QFT operator at n <= 6: dense against
   the bit-reversed unitary DFT and against JAX (complex128, within 1e-10);
-* the whole ``QFTPipeline`` at n = 8 (the ``sin`` signal, rsvd encode with
-  k=50 p=5 q=2, cutoff 1e-9, the default build) on the port's native route
-  and on its forced device route (the Jacobi solver, K2's plain version),
-  each against the JAX package's pipeline on the same route and against
-  the closed-form DFT of x_j = sin(j / N). The rsvd sketch, not the port,
-  decides the encoder's rank at the finest bonds (torch and JAX draw
-  different numbers), so each run is held to its own bar against the
-  closed form, and the port and JAX agree within the larger of their two
-  errors.
+* the whole ``QFTPipeline`` at n = 8 (the ``sin`` signal, cutoff 1e-9,
+  the default build) on the port's native route and on its forced device
+  route (the Jacobi solver, K2's plain version), against the closed-form
+  DFT of x_j = sin(j / N). Encoded by rsvd (k=50 p=5 q=2), a run is held to
+  the closed form only: the rsvd sketch, not the port, decides the
+  encoder's rank at the finest bonds, and torch and JAX draw different
+  numbers. Through ``__call__`` (the TT-SVD encode, which draws nothing)
+  the port is also held to the JAX package's ``__call__`` on the same
+  route: within 1e-4 on the native route (LAPACK's SVD in complex64), and
+  within the closed-form bar on the device route, where the float32 Gram
+  eigensolve rounds otherwise in each package and the two runs differ by
+  about the size of their own errors.
 """
 
 import numpy as np
@@ -33,6 +36,7 @@ N_PIPE = 8
 PIPE = dict(chi=16, cutoff=1e-9)
 ENCODE = dict(method="rsvd", k=50, p=5, q=2)
 FORCED_BAR = 2e-3
+CALL_BAR = {"native": 1e-4, "device": FORCED_BAR}
 
 
 def bit_reversed_dft(n):
@@ -84,18 +88,17 @@ def test_build_qft_mpo_is_the_bit_reversed_dft(n):
 
 @pytest.fixture(scope="module")
 def jax_pipelines():
-    """The JAX package's spectrum on its native route and on its device
-    route (``FORCE_DEVICE_PATH``, the TPU's route: the lax.scan Jacobi
-    solver). The package's jitted functions are traced once per shape, so
-    the caches are cleared around the forced run."""
+    """The JAX package's ``__call__`` spectrum on its native route and on
+    its device route (``FORCE_DEVICE_PATH``, the TPU's route: the lax.scan
+    Jacobi solver). The package's jitted functions are traced once per
+    shape, so the caches are cleared around the forced run."""
     import jax
 
     ks = np.arange(2**N_PIPE)
 
     def run():
         pipe = JQFTPipeline(N_PIPE, **PIPE)
-        out = pipe.forward(pipe.encode(qj.generate_signal(N_PIPE), **ENCODE))
-        return np.asarray(pipe.spectrum(out, ks))
+        return np.asarray(pipe(qj.generate_signal(N_PIPE), ks))
 
     spectra = {"native": run()}
     jax.clear_caches()
@@ -108,8 +111,8 @@ def jax_pipelines():
 
 @pytest.mark.parametrize("route", ["native", "device"])
 def test_qft_pipeline_n8(jax_pipelines, monkeypatch, route):
-    """The port's route against the JAX package's same route and the
-    closed form: they agree within the larger of their two errors."""
+    """The port's route against the closed form, and its ``__call__``
+    against the JAX package's ``__call__`` on the same route."""
     monkeypatch.setattr(tcl, "FORCE_DEVICE_PATH", route == "device")
     ks, spectra = jax_pipelines
     got_j = spectra[route]
@@ -120,14 +123,13 @@ def test_qft_pipeline_n8(jax_pipelines, monkeypatch, route):
     out = pipe.forward(psi)
     got = pipe.spectrum(out, torch.from_numpy(ks))
     assert got.dtype == torch.complex64 and got.shape == ks.shape
-    got = got.numpy()
-    err_t, err_j = rel(got, want), rel(got_j, want)
-    assert err_t <= FORCED_BAR
-    assert rel(got, got_j) <= max(err_t, err_j)
+    assert rel(got.numpy().astype(np.complex128), want) <= FORCED_BAR
     assert 1 <= qt.max_bond(pipe.mpo) <= 8 and qt.max_bond(out) <= PIPE["chi"]
     assert pipe.spectrum(out, [3]).shape == (1,)
     # __call__: encode (TT-SVD by default), apply, read
-    assert rel(pipe(x, torch.from_numpy(ks)).numpy(), want) <= FORCED_BAR
+    called = pipe(x, torch.from_numpy(ks)).numpy().astype(np.complex128)
+    assert rel(called, want) <= FORCED_BAR
+    assert rel(called, got_j.astype(np.complex128)) <= CALL_BAR[route]
 
 
 ENTRY_POINTS = {
