@@ -28,6 +28,8 @@ one state or one stack.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from qilaplace_tpu_torch.core.mpo import MPO, PairedSiteMPO, _mpo_chain
@@ -39,7 +41,7 @@ from qilaplace_tpu_torch.core.mps import (
     _sweep_right,
     _two_site_sweep,
 )
-from qilaplace_tpu_torch.ops.complexlinalg import slot_einsum
+from qilaplace_tpu_torch.ops.complexlinalg import mm, per_slot, slot_einsum
 from qilaplace_tpu_torch.ops.truncation import (
     _is_fast,
     range_split,
@@ -409,39 +411,127 @@ def embed_window(W, n_total: int, start: int):
     return PairedSiteMPO(chain=out) if isinstance(W, PairedSiteMPO) else out
 
 
+_KEY_SITES = 62  # sites packed into one int64 sort key
+
+
+def _prefix_plan(configs: torch.Tensor):
+    """The distinct prefixes of the rows of ``configs`` [B, n], found on
+    their device with one host sync.
+
+    The rows are sorted lexicographically, site 1 most significant (stable
+    sorts of int64 keys of up to 62 sites each, the last sites first), so
+    rows that share a prefix at any depth are contiguous. A row starts a
+    new prefix at site s where it differs from the row before it anywhere
+    in sites 1..s; a running count of those flags along the sorted rows
+    numbers the prefixes at every site.
+
+    Returns ``(counts, parent, bit, final)``: ``counts[s]`` (host ints) is
+    the number U_s of distinct prefixes of sites 1..s+1. ``parent`` and
+    ``bit`` list the prefixes site after site, U_s at site s: prefix j of
+    sites 1..s+1 extends prefix ``parent[q]`` of sites 1..s (0 at s = 0)
+    by the bit ``bit[q]``, q = U_0 + ... + U_{s-1} + j. ``final[i]`` is
+    the id of row i's whole config.
+    """
+    bits = configs != 0
+    B, n = bits.shape
+    device = bits.device
+    order = torch.arange(B, device=device)
+    for lo in reversed(range(0, n, _KEY_SITES)):
+        chunk = bits[order, lo:lo + _KEY_SITES].long()
+        shifts = torch.arange(chunk.shape[1] - 1, -1, -1, device=device)
+        key = (chunk << shifts).sum(-1)
+        order = order[torch.sort(key, stable=True).indices]
+    srt = bits[order].T.contiguous().long()  # [n, B]: sites x sorted rows
+    new = torch.ones(n, B, dtype=torch.bool, device=device)
+    new[:, 1:] = (srt[:, 1:] != srt[:, :-1]).cumsum(0) > 0
+    # one scan of the flat array (a scan along a long inner axis is slow
+    # on the card); every site's first row is new
+    ids = new.view(-1).cumsum(0).view(n, B)
+    ids = ids - ids[:, :1]
+    U = ids[:, -1] + 1
+    # the cell (s, row) that starts each prefix, at the prefix's place in
+    # the site-after-site list; other cells write a spare slot
+    place = torch.where(new, (U.cumsum(0) - U)[:, None] + ids, n * B)
+    first = torch.zeros(n * B + 1, dtype=torch.long, device=device).scatter_(
+        0, place.view(-1), torch.arange(n * B, device=device))
+    prev = torch.cat([torch.zeros_like(ids[:1]), ids[:-1]])
+    parent = prev.view(-1)[first]
+    bit = srt.view(-1)[first]
+    final = torch.empty_like(order)
+    final[order] = ids[-1]
+    counts = U.tolist()  # the one host sync
+    total = sum(counts)
+    return counts, parent[:total], bit[:total], final
+
+
 def apply_coefficient_batch(W, psi, configs) -> torch.Tensor:
     """Batched ``<config| W |psi>`` without forming the truncated product.
 
     ``configs`` is [B, n] output bits (site 1 = MSB). Per site: one
-    contraction of the running [B, chi_W, chi_psi] environment with the
-    whole W core, a per-config output-bit select, then one contraction with
-    the psi core over (psi bond, s). Roundoff stays relative to the running
-    path product, which is what keeps f32 scans accurate near a pole.
+    contraction of the running [U, chi_psi, chi_W] environments with the
+    whole W core, a gather of each environment's output bit, then one
+    contraction with the psi core over (psi bond, s). Roundoff stays
+    relative to the running path product, which is what keeps f32 scans
+    accurate near a pole.
+
+    Rows that share their bits at sites 1..s share their environment
+    after site s, so each distinct prefix of the configs is contracted once
+    (``_prefix_plan``): U is the number of distinct prefixes, which on a
+    pole search's grids is far below B until the last sites. Every row's
+    value is the same chain of contractions as alone. Each call adds B n
+    to ``apply_coefficient_batch.row_sites`` and the rows that entered the
+    first contraction, summed over sites, to ``.shared_row_sites``.
 
     A stack of operators [S, ...] (``parallel.stack_mpos``) gives [S, B]:
     the stack is the leading axis of the environment and of each
-    contraction, as ``jax.vmap`` over the operator does.
+    contraction, as ``jax.vmap`` over the operator does. On the card both
+    products run one operator at a time (``per_slot``): cuBLAS picks
+    another algorithm for a batch of few rows, and a readout far below
+    the signal's peak would show the different roundoff, so each slot
+    computes what its operator alone computes.
     """
     wm = _mpo_chain(W)
     pm = _chain(psi)
     dtype = torch.promote_types(wm.dtype, pm.dtype)
-    configs = torch.as_tensor(configs, device=pm.device)
+    device = pm.device
+    configs = torch.as_tensor(configs, device=device)
     B = configs.shape[0]
+    if configs.shape[-1] != pm.n:
+        raise ValueError(f"apply_coefficient_batch: configs have "
+                         f"{configs.shape[-1]} sites, the chain {pm.n}")
     cw, cp = wm.chi, pm.chi
     lead = wm.cores.shape[:-5]
-    v = torch.zeros(*lead, B, cw, cp, dtype=dtype, device=pm.device)
-    v[..., 0, 0] = 1
-    for site in range(pm.n):
-        Wc = wm.cores.select(-5, site).to(dtype)  # [..., cw, 2, 2, cw]
-        pc = pm.cores[site].to(dtype)  # [cp, 2, cp]
-        t = torch.einsum("...Bab,...aK->...BbK", v,
-                         Wc.reshape(*lead, cw, 4 * cw))
-        t = t.reshape(*lead, B, cp, 2, 2, cw)
-        sel = (configs[:, site] == 0)[:, None, None, None]
-        # [..., B, cp, 2(s), cw]
-        t = torch.where(sel, t.select(-3, 0), t.select(-3, 1))
-        v = torch.einsum("...BbsA,bsc->...BAc", t, pc)
-    return pm.amplitude * v[..., 0, 0]
+    counts, parent, bit, final = _prefix_plan(configs)
+    # the first contraction's rows are (prefix, psi bond b, output bit):
+    # each new prefix takes its parent's rows at its bit, every b
+    rows = ((parent * (2 * cp) + bit)[:, None]
+            + 2 * torch.arange(cp, device=device)).view(-1)
+    Wc = wm.cores.to(dtype).reshape(*lead, pm.n, cw, 4 * cw)
+    # psi cores as [c, (b, s)], the left factor of the second contraction
+    pcT = pm.cores.to(dtype).permute(0, 3, 1, 2).reshape(pm.n, cp, 2 * cp)
+    v = torch.zeros(*lead, 1, cp, cw, dtype=dtype, device=device)
+    v[..., 0, 0, 0].fill_(1)
+    first_product, second_product = torch.matmul, torch.matmul
+    if lead:  # only a stack needs ``per_slot``: spare the rest its host time
+        first_product = mm
+        second_product = functools.partial(per_slot, torch.matmul,
+                                           core=(2, 3))
+    at = 0
+    for site, U in enumerate(counts):
+        # [..., U_{s-1} cp, 2(o) 2(s) cw]
+        t = first_product(v.view(*lead, -1, cw), Wc.select(-3, site))
+        t = t.view(*lead, -1, 2 * cw).index_select(
+            -2, rows[at * cp:(at + U) * cp])
+        at += U
+        # [..., U, (b, s), cw] -> [..., U, cp, cw]
+        v = second_product(pcT[site], t.view(*lead, U, 2 * cp, cw))
+    apply_coefficient_batch.row_sites += B * pm.n
+    apply_coefficient_batch.shared_row_sites += 1 + sum(counts[:-1])
+    return pm.amplitude * v[..., final, 0, 0]
+
+
+apply_coefficient_batch.row_sites = 0
+apply_coefficient_batch.shared_row_sites = 0
 
 
 def zipper_chain(W, psi) -> MPS:

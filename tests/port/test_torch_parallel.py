@@ -177,6 +177,29 @@ def test_stack_mpos_and_multi_chi_batch_match_jax(zt_stack):
         assert rel(got[i], single) <= 1e-12
 
 
+def test_multi_chi_batch_shared_prefixes_match_jax(zt_stack):
+    """The stacked readout on a pole search's coarse configs (the full
+    plane at stride N / 16): every row shares its first 8 sites, so each
+    operator's environments are contracted once per distinct prefix."""
+    Wjs, psij, _ = zt_stack
+    N = 2**8
+    K, L = np.meshgrid(np.arange(0, N, N // 16), np.arange(0, N, N // 16),
+                       indexing="ij")
+    configs = paired_config_from_kl(jnp.asarray(K.reshape(-1)),
+                                    jnp.asarray(L.reshape(-1)), 8)
+    stacked = pt.stack_mpos([to_port(W, paired=True) for W in Wjs])
+    psi = to_port(psij, paired=True)
+    cfg = torch.from_numpy(np.array(configs))
+    got = pt.multi_mpo_chi_batch(stacked, psi, cfg)
+    want = np.asarray(pj.multi_mpo_chi_batch(pj.stack_mpos(Wjs), psij,
+                                             configs))
+    assert got.shape == (4, 256)
+    assert rel(got, want) <= 1e-12
+    for i, W in enumerate(Wjs):
+        single = qt.apply_coefficient_batch(to_port(W, paired=True), psi, cfg)
+        assert rel(got[i], single) <= 1e-12
+
+
 @pytest.mark.parametrize("shape", [(8, 1), (4, 2)])
 def test_sharded_multi_scan_matches_unsharded(zt_stack, shape):
     Wjs, psij, configs = zt_stack

@@ -7,16 +7,20 @@ device with chi <= 256 and a real amplitude. ``direct_vals`` (behind
 ``readout="direct"``), ``chi_grid`` and ``QFTPipeline.spectrum`` decide by
 it up front. The CPU tests hold the rule and the routing to it on small
 stand-in objects; the GPU tests (marker ``gpu``, skipped without a card)
-read complex128 states, and chi > 256 states through ``spectrum``, on the
-card and hold each against the same call on the CPU: within 1e-10
-relative in complex128, and K1's launch count does not move. No JAX
-import, so the GPU tests run where only the port is installed:
+read complex128 states, and chi > 256 states through ``spectrum`` and the
+factored ``apply_coefficient_batch``, on the card and hold each against the
+same call on the CPU: within 1e-10 relative in complex128 (1e-5 in
+complex64), and K1's launch count does not move; the factored readout's
+host syncs do not grow with the chain, and a stack of operators reads on
+the card bit for bit what each operator alone reads. No JAX import, so
+the GPU tests run where only the port is installed:
 
     python -m pytest tests/port/test_torch_readout_routes.py -m gpu --confcutdir=tests/port
 """
 
 import math
 import types
+import warnings
 
 import numpy as np
 import pytest
@@ -226,3 +230,83 @@ def test_spectrum_wider_than_k1_on_card(cuda_device, dtype):
     assert rk.coefficient_batch_k1.launches == before
     assert got.dtype == dtype
     assert rel(got, want) <= (TOL_C128 if dtype == torch.complex128 else 1e-5)
+
+
+def wide_pair(n, chi_w=40, chi_p=8, seed=30):
+    """A random complex64 operator and state of 2n chain sites whose
+    chi_eff = chi_w chi_p (320) is past K1's width; entries ~ N(0, 1/(2
+    chi)) per part keep the environments O(1) along the chain."""
+    rng = np.random.default_rng(seed)
+    sites = 2 * n
+    w = (rng.normal(size=(sites, chi_w, 2, 2, chi_w)) + 1j * rng.normal(
+        size=(sites, chi_w, 2, 2, chi_w))) / math.sqrt(2 * chi_w)
+    W = qt.MPO(cores=torch.from_numpy(w.astype(np.complex64)),
+               ranks=torch.full((sites + 1,), chi_w, dtype=torch.int32))
+    return W, random_chain(rng, sites, chi_p, amplitude=1.5)
+
+
+def coarse_configs(n, device="cpu"):
+    """The coarse grid's configs: the full plane at stride 2^n / 256."""
+    ks = torch.arange(0, 2**n, 2**n // 256, device=device)
+    return pole_scan._grid_configs(n, ks, ks)
+
+
+@pytest.mark.gpu
+def test_factored_readout_on_card_matches_cpu(cuda_device):
+    # n = 30: 60 sites, 65,536 configs sharing their first 44 sites
+    W, psi = wide_pair(30)
+    cfg = coarse_configs(30)
+    want = qt.apply_coefficient_batch(W.to(dtype=torch.complex128),
+                                      psi.to(dtype=torch.complex128), cfg)
+    before = rk.coefficient_batch_k1.launches
+    got = qt.apply_coefficient_batch(W.to(cuda_device), psi.to(cuda_device),
+                                     cfg.to(cuda_device))
+    assert rk.coefficient_batch_k1.launches == before
+    assert got.dtype == torch.complex64 and got.device.type == "cuda"
+    assert rel(got, want) <= 1e-5
+
+
+def host_syncs(fn):
+    """Where ``fn`` makes a synchronising CUDA call, as the card's sync
+    debug mode reports them: a list of "file:line"."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+@pytest.mark.gpu
+def test_factored_readout_host_syncs_do_not_grow_with_sites(cuda_device):
+    syncs = {}
+    for n in (10, 30):  # 20 and 60 sites
+        W, psi = wide_pair(n)
+        W, psi = W.to(cuda_device), psi.to(cuda_device)
+        cfg = coarse_configs(n, cuda_device)
+        qt.apply_coefficient_batch(W, psi, cfg)  # warm-up
+        syncs[n] = host_syncs(lambda: qt.apply_coefficient_batch(W, psi, cfg))
+    assert len(syncs[10]) == len(syncs[30]), syncs
+    assert 1 <= len(syncs[30]) <= 2, syncs
+
+
+@pytest.mark.gpu
+def test_stacked_factored_readout_on_card_is_each_operator_alone(cuda_device):
+    # eight operators stacked, on random configs that share few prefixes:
+    # the early sites run products of a few rows, where a batched product
+    # would round otherwise than one operator's
+    from qilaplace_tpu_torch.parallel import stack_mpos
+
+    Ws = [wide_pair(10, chi_w=16, chi_p=4, seed=s)[0].to(cuda_device)
+          for s in range(8)]
+    psi = wide_pair(10, chi_w=16, chi_p=4)[1].to(cuda_device)
+    rng = np.random.default_rng(8)
+    cfg = torch.from_numpy(rng.integers(0, 2, (512, 20)).astype(np.int32))
+    cfg = cfg.to(cuda_device)
+    multi = qt.apply_coefficient_batch(stack_mpos(Ws), psi, cfg)
+    for i, W in enumerate(Ws):
+        assert torch.equal(multi[i], qt.apply_coefficient_batch(W, psi, cfg))
