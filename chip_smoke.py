@@ -1255,9 +1255,10 @@ def phase_gate_pole(dev):
     for wr, scans in ((2 * math.pi, ("coarse",)),
                       (0.5, ("fine", "superfine"))):
         W, t_build = synced(lambda: qt.zt_mpo(
-            n, wr, engine="gate", cutoff=GATE_CUTOFF, maxdim=CHI,
+            n, wr, engine="gate", cutoff=GATE_CUTOFF, maxdim=CHI, chi=CHI,
             dtype=torch.complex64, cache=False, device=dev))
-        out, t_apply = synced(lambda: qt.apply(W, psi, maxdim=CHI,
+        out, t_apply = synced(lambda: qt.apply(qt.tighten(W), psi,
+                                               maxdim=CHI,
                                                cutoff=GATE_CUTOFF))
         for name in scans:
             check_k1_read(f"gate-pole {name}", out, getattr(res, name))

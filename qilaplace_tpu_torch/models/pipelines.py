@@ -36,6 +36,7 @@ from qilaplace_tpu_torch.scan.pole_scan import (
     chi_grid,
     chi_grid_direct,
     coarse_to_fine_pole_search,
+    operator_dtype,
     pole_scan,
     tighten,
 )
@@ -49,6 +50,14 @@ from qilaplace_tpu_torch.utils.bits import (
     tensor_interleave_bits,
 )
 from qilaplace_tpu_torch.utils.config import resolve_device
+
+
+def _lands_on(device: torch.device) -> torch.device:
+    """The device that a tensor placed on ``device`` lands on (a CUDA
+    device without an index is the current one)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class QFTPipeline:
@@ -145,6 +154,7 @@ class ZTPipeline:
         self.cache_dir = cache_dir
         self.device = resolve_device(device)
         self._mpo_cache: dict = {}
+        self._tight_cache: dict = {}
 
     def mpo(self, wr: float):
         if wr not in self._mpo_cache:
@@ -184,11 +194,29 @@ class ZTPipeline:
         """Peak of a product state's grid (:func:`pole_scan`)."""
         return pole_scan(psi_out, ks, ls, wr=wr)
 
+    def search_mpo(self, wr: float):
+        """:meth:`mpo` tightened to its realized ranks (:func:`tighten`),
+        as a pole search reads it; tightened once and kept."""
+        if wr not in self._tight_cache:
+            self._tight_cache[wr] = tighten(self.mpo(wr))
+        return self._tight_cache[wr]
+
     def find_poles(self, psi_z, **kw):
+        """:func:`coarse_to_fine_pole_search` on ``psi_z`` with the
+        pipeline's settings. Where the search's operators are the
+        pipeline's own (same engine, build cutoff, maxdim and dtype, on
+        psi's device) it reads those kept by :meth:`search_mpo`, so that a
+        search builds or loads nothing once they are; an override of any
+        of these makes the search build or load its own."""
         kw.setdefault("cutoff", self.build_cutoff)
         kw.setdefault("maxdim", self.chi)
         kw.setdefault("engine", self.engine)
         kw.setdefault("readout", self.readout)
         kw.setdefault("cache", self.cache)
         kw.setdefault("cache_dir", self.cache_dir)
+        settings = (kw["engine"], kw["cutoff"], kw["maxdim"],
+                    operator_dtype(psi_z), psi_z.chain.device)
+        if settings == (self.engine, self.build_cutoff, self.chi, self.dtype,
+                        _lands_on(self.device)):
+            kw.setdefault("operators", self.search_mpo)
         return coarse_to_fine_pole_search(psi_z, **kw)

@@ -25,6 +25,8 @@ from JAX's, so tests compare only what the sketch does not decide.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from qilaplace_tpu_torch.ops.complexlinalg import (
@@ -152,12 +154,15 @@ def _gram_svd(M: torch.Tensor, sweeps: int | None = None,
     return B * inv[..., None, :].to(M.dtype), s, V.mH
 
 
+@functools.lru_cache(maxsize=64)
 def _gaussian(b: int, l: int, dtype: torch.dtype, device: torch.device,
               seed: int) -> torch.Tensor:
     """Deterministic Gaussian [b, l] (complex: independent real and
     imaginary parts, each N(0, 1)), drawn on the host from
     a generator seeded with ``seed`` so the host and the card see the same
-    numbers; the same seed gives the same matrix on every call."""
+    numbers. The same arguments give the same matrix, so it is drawn and
+    moved to ``device`` once and kept (callers only read it): a zip-up
+    apply asks for one sketch at every site."""
     gen = torch.Generator().manual_seed(seed)
     rdt = real_dtype(dtype)
     out = torch.randn(b, l, generator=gen, dtype=rdt)

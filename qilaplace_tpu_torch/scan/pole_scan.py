@@ -161,6 +161,13 @@ def pole_scan(psi_out: ZTMPS, ks, ls, *, wr, wi=TWO_PI) -> ScanResult:
     return _peak(chi_grid(psi_out, ks, ls), ks, ls, psi_out.n, wr, wi)
 
 
+def operator_dtype(psi_z: ZTMPS) -> torch.dtype:
+    """The dtype of the operators a pole search of ``psi_z`` builds:
+    complex128 for a 64-bit state (real part's width), else complex64."""
+    wide = real_dtype(psi_z.chain.dtype).itemsize >= 8
+    return torch.complex128 if wide else torch.complex64
+
+
 @dataclasses.dataclass
 class PoleSearchResult:
     coarse: ScanResult
@@ -212,6 +219,7 @@ def coarse_to_fine_pole_search(
     engine: str = "analytic",
     cache: bool = True,
     cache_dir: str | None = None,
+    operators=None,
 ) -> PoleSearchResult:
     """Coarse -> fine -> superfine pole identification on psi's device.
 
@@ -222,9 +230,16 @@ def coarse_to_fine_pole_search(
                fine peak, reusing the fine transform.
 
     ``engine`` builds each transform ("analytic": the rail-cross route;
-    "gate": the gate-layer fold); ``cache=True`` loads and saves per-wr
-    operator artifacts. ``readout="direct"`` contracts <config| W |psi>
-    per grid point (roundoff relative to the path product);
+    "gate": the gate-layer fold) at ``cutoff`` and ``maxdim``;
+    ``cache=True`` loads and saves per-wr operator artifacts. Either
+    readout takes each operator tightened to its realized ranks
+    (:func:`tighten`), so that its bond padding sets no width of the work.
+    ``operators``, a callable wr -> W, hands the search operators built
+    and tightened elsewhere (``ZTPipeline.find_poles`` passes the ones it
+    keeps in memory) in place of that build or load; they must be what
+    those settings build.
+    ``readout="direct"`` contracts <config| W |psi> per grid point
+    (roundoff relative to the path product);
     ``readout="apply"`` forms the product state once per transform
     (``apply_fused``: the zip-up apply at ``maxdim``/``cutoff``, else the
     exact apply) and reads it (:func:`pole_scan`), with a floor at
@@ -239,10 +254,9 @@ def coarse_to_fine_pole_search(
     n = psi_z.n
     N = 2**n
     device = psi_z.chain.device
-    wide = real_dtype(psi_z.chain.dtype).itemsize >= 8
-    dtype = torch.complex128 if wide else torch.complex64
+    dtype = operator_dtype(psi_z)
     if readout == "auto":
-        readout = "apply" if wide else "direct"
+        readout = "apply" if dtype == torch.complex128 else "direct"
     if readout not in ("direct", "apply"):
         raise ValueError(
             f"coarse_to_fine_pole_search: unknown readout {readout!r}; use "
@@ -250,12 +264,16 @@ def coarse_to_fine_pole_search(
         )
     psi_tight = tighten(psi_z) if readout == "direct" else psi_z
 
+    if operators is None:
+        def operators(wr):
+            return tighten(zt_mpo(n, wr, engine=engine, cutoff=cutoff,
+                                  maxdim=maxdim, dtype=dtype, cache=cache,
+                                  cache_dir=cache_dir, device=device))
+
     def transform(wr):
-        W = zt_mpo(n, wr, engine=engine, cutoff=cutoff, maxdim=maxdim,
-                   dtype=dtype, cache=cache, cache_dir=cache_dir,
-                   device=device)
+        W = operators(wr)
         if readout == "direct":
-            return tighten(W)
+            return W
         if apply_fused:
             return apply(W, psi_z, maxdim=maxdim, cutoff=cutoff)
         return apply(W, psi_z)

@@ -242,6 +242,8 @@ def zt_mpo(
     finished operator as an .npz artifact keyed on (engine, n, wr, cutoff,
     maxdim, chi, dtype, chi_work), readable by the JAX package too. The
     operator lands on ``device`` (the card unless told otherwise).
+    ``zt_mpo.loads`` counts the operators read from the artifact cache and
+    ``zt_mpo.builds`` those built, either way.
     """
     device = resolve_device(device)
     if engine not in ("analytic", "gate"):
@@ -251,12 +253,17 @@ def zt_mpo(
     if cache:
         from qilaplace_tpu_torch.utils.io import cached_zt_mpo
 
-        W, _ = cached_zt_mpo(
+        W, hit = cached_zt_mpo(
             n, wr, cutoff=cutoff, maxdim=maxdim, chi=chi, dtype=dtype,
             chi_work=chi_work, cache_dir=cache_dir, device=device,
             engine=engine,
         )
+        if hit:
+            zt_mpo.loads += 1
+        else:
+            zt_mpo.builds += 1
         return W
+    zt_mpo.builds += 1
     if engine == "analytic":
         from qilaplace_tpu_torch.transforms.analytic import analytic_zt_mpo
 
@@ -264,3 +271,7 @@ def zt_mpo(
                                dtype=dtype, device=device)
     return build_zt_mpo(n, wr, cutoff=cutoff, maxdim=maxdim, chi=chi,
                         dtype=dtype, chi_work=chi_work, device=device)
+
+
+zt_mpo.loads = 0
+zt_mpo.builds = 0
